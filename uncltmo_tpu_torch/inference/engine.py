@@ -1,0 +1,187 @@
+"""Batched tiled-inference engine (port of `uncltmo_tpu/inference/engine.py`,
+image paths).
+
+Tiles are cut from the padded log-luma frame, run through the generator in
+batches ("chunks"), weighted by the partition-of-unity masks `wy ⊗ wx` of
+the tile plan and summed into a float32 canvas.  PyTorch runs eagerly, so
+the JAX engine's compile-time split into an unrolled and a streamed program
+(`engine.py:30-43`) becomes one Python chunk loop that builds each chunk's
+masks from the per-axis weights (the dense (N, t, t) mask array is never
+built).  Chunk composition matters for `stretch_g='batchMax'` checkpoints
+(the max is taken over the batch), so the chunking and padding follow the
+JAX engine exactly:
+
+* plans of <= 120 tiles: chunks of `_chunk_for(n)` tiles, the last padded
+  with all-zero tiles;
+* larger plans: equalised chunks, padded with tiles cut at origin (0, 0)
+  that carry zero weight;
+* `run_images`: the tiles of `frames_per_step` frames form one batch
+  (plans of <= 120 tiles).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from uncltmo_tpu_torch import params
+from uncltmo_tpu_torch.inference.tiling import axis_plan
+
+# Plans above this many tiles run in equalised chunks of ~120 tiles
+# (`engine.py:43`, `:174-201`).
+STREAM_TILE_THRESHOLD = 120
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class TileEngine:
+    """Runs the generator over arbitrarily large (padded) images.
+
+    Args:
+      model: a `UNetTMO`; it is moved to `device`, and in the bfloat16 mode
+        its parameters (not its buffers) are cast to bfloat16 once.
+      tile, overlap: tiling config (256 / 64 for the quarter-res protocol).
+      chunk: tiles per forward, or None for the JAX engine's policy.
+      dtype: compute dtype of the forward; the blend is always float32.
+      device: "cuda" by default; tests pass "cpu".
+    """
+
+    def __init__(self, model: torch.nn.Module, tile: int = params.TILE,
+                 overlap: int = params.TILE_OVERLAP,
+                 chunk: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.device = torch.device(device)
+        self.tile = tile
+        self.overlap = overlap
+        self.chunk = chunk
+        self.dtype = dtype
+        self.model = model.to(self.device).eval()
+        if dtype != torch.float32:
+            # params once, as `engine.py:129-155`; the GCN's relative-
+            # position buffer stays float32 for the float32 KNN
+            for p in self.model.parameters():
+                p.data = p.data.to(dtype)
+        self._plans: dict = {}
+
+    def _chunk_for(self, n: int) -> int:
+        """Tiles per conv batch for an n-tile plan (`engine.py:174-201`):
+        the explicit `chunk` rounded up to 4 and capped at the padded plan;
+        else one batch for n <= 120, equalised chunks of ~120 above."""
+        gran = 4
+        if self.chunk is not None:
+            return min(_round_up(self.chunk, gran), _round_up(n, gran))
+        if n > STREAM_TILE_THRESHOLD:
+            n_chunks = -(-n // 120)
+            return min(_round_up(-(-n // n_chunks), gran),
+                       _round_up(n, gran))
+        return _round_up(n, gran)
+
+    def _plan(self, h: int, w: int):
+        """Tile origins and per-axis weights on the device, cached per
+        (h, w): (oy, ox, wy, wx, n)."""
+        key = (h, w)
+        if key not in self._plans:
+            py = axis_plan(h, self.tile, self.overlap)
+            px = axis_plan(w, self.tile, self.overlap)
+            ny, nx = len(py.origins), len(px.origins)
+            dev = self.device
+            self._plans[key] = (
+                np.repeat(py.origins, nx).astype(np.int64),
+                np.tile(px.origins, ny).astype(np.int64),
+                torch.from_numpy(np.repeat(py.weights, nx, axis=0)).to(dev),
+                torch.from_numpy(np.tile(px.weights, (ny, 1))).to(dev),
+                ny * nx)
+        return self._plans[key]
+
+    def _forward(self, tiles: torch.Tensor) -> torch.Tensor:
+        """(N, 1, t, t) tiles -> (N, t, t) float32 generator outputs."""
+        with torch.no_grad():
+            out, _ = self.model(tiles.to(self.dtype))
+        return out.float()[:, 0]
+
+    def _cut(self, image_hw: torch.Tensor, oy, ox) -> torch.Tensor:
+        t = self.tile
+        return torch.stack([image_hw[y:y + t, x:x + t]
+                            for y, x in zip(oy, ox)])[:, None]
+
+    def _blend(self, canvas: torch.Tensor, outs: torch.Tensor, wy, wx, oy,
+               ox, streamed: bool) -> None:
+        """Add the weighted tiles into the (H, W) canvas in place.  The
+        unrolled JAX path multiplies by the mask wy ⊗ wx, the streamed one
+        by wy then wx; the same order keeps float32 results identical."""
+        if streamed:
+            weighted = outs * wy[:, :, None] * wx[:, None, :]
+        else:
+            weighted = outs * (wy[:, :, None] * wx[:, None, :])
+        t = self.tile
+        for i, (y, x) in enumerate(zip(oy, ox)):
+            canvas[y:y + t, x:x + t] += weighted[i]
+
+    def _run_frame(self, image_hw: torch.Tensor) -> torch.Tensor:
+        h, w = image_hw.shape
+        oy, ox, wy, wx, n = self._plan(h, w)
+        chunk = self._chunk_for(n)
+        n_pad = _round_up(n, chunk)
+        streamed = n > STREAM_TILE_THRESHOLD
+        canvas = torch.zeros((h, w), dtype=torch.float32, device=self.device)
+        for c0 in range(0, n_pad, chunk):
+            real = range(c0, min(c0 + chunk, n))
+            tiles = self._cut(image_hw, oy[real.start:real.stop],
+                              ox[real.start:real.stop])
+            n_fill = chunk - len(real)
+            if n_fill:
+                if streamed:     # origin-(0, 0) tiles, zero weight
+                    fill = self._cut(image_hw, [0] * n_fill, [0] * n_fill)
+                else:            # zero tiles
+                    fill = torch.zeros((n_fill,) + tiles.shape[1:],
+                                       dtype=tiles.dtype, device=tiles.device)
+                tiles = torch.cat([tiles, fill])
+            outs = self._forward(tiles)[:len(real)]
+            sl = slice(real.start, real.stop)
+            self._blend(canvas, outs, wy[sl], wx[sl], oy[sl], ox[sl],
+                        streamed)
+        return canvas
+
+    def run_image(self, image_hw1: torch.Tensor) -> torch.Tensor:
+        """(H, W, 1) padded log-luma -> (H, W, 1) tone-mapped luma (f32)."""
+        image = image_hw1.to(self.device)[..., 0]
+        return self._run_frame(image)[..., None]
+
+    def run_images(self, frames_fhw1: torch.Tensor,
+                   post_fn: Optional[Callable] = None,
+                   frames_per_step: int = 2) -> torch.Tensor:
+        """(F, H, W, 1) -> per-frame results, stacked.
+
+        The tiles of `frames_per_step` frames share one conv batch (plans of
+        <= 120 tiles; larger plans run frame by frame in chunks, as
+        `engine.py:374-411`).  `post_fn(frame_result)` is applied to each
+        (H, W, 1) result.  F must be a multiple of frames_per_step."""
+        f, h, w = (int(frames_fhw1.shape[0]), int(frames_fhw1.shape[1]),
+                   int(frames_fhw1.shape[2]))
+        g = frames_per_step
+        if f % g:
+            raise ValueError(f"{f} frames is not a multiple of "
+                             f"frames_per_step={g}")
+        frames = frames_fhw1.to(self.device)[..., 0]
+        oy, ox, wy, wx, n = self._plan(h, w)
+        results = []
+        for g0 in range(0, f, g):
+            group = frames[g0:g0 + g]
+            if n > STREAM_TILE_THRESHOLD:
+                outs = [self._run_frame(fr) for fr in group]
+            else:
+                tiles = torch.cat([self._cut(fr, oy, ox) for fr in group])
+                per_frame = self._forward(tiles).reshape(g, n, *tiles.shape[2:])
+                outs = []
+                for o in per_frame:
+                    canvas = torch.zeros((h, w), dtype=torch.float32,
+                                         device=self.device)
+                    self._blend(canvas, o, wy, wx, oy, ox, False)
+                    outs.append(canvas)
+            for canvas in outs:
+                res = canvas[..., None]
+                results.append(post_fn(res) if post_fn else res)
+        return torch.stack(results)

@@ -1,0 +1,154 @@
+"""ViG-style GCN bottleneck (NCHW), the exact-grid case of the tiled path.
+
+Port of `uncltmo_tpu/models/gcn.py` (reference `gcn_lib/` and
+`Unet.py:20-99`).  Attribute names follow the reference `.pth` layout:
+`gcn.pos_embed`, `gcn.module.0.0.{fc1.0, graph_conv.gconv.nn.0, fc2.0,
+relative_pos}`, `gcn.module.0.1.{fc1.0, fc2.0}`.
+
+Numerics as in the JAX package:
+* KNN distances on L2-normalised features (`+1e-24`), in float32 whatever
+  the compute dtype, plus the fixed sincos relative-position bias (a
+  buffer regenerated from geometry, not a learned parameter);
+* max-relative aggregation, then the channel interleave `[x, rel]`
+  (`gcn.py:166`) before the groups=4 1x1 conv;
+* exact-erf GELU.
+`topk` may order tied neighbours differently from `lax.top_k`; the max over
+neighbours only sees which set is chosen.
+
+Bottlenecks that are not gcn_grid x gcn_grid (the whole-image path's
+bicubic pos-embed resize, `gcn.py:205-215`) raise NotImplementedError
+(ROADMAP Queue 1 item 3).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def sincos_pos_embed_2d(embed_dim: int, grid_size) -> np.ndarray:
+    """2-D sine-cosine positional embedding, (H*W, embed_dim), float64
+    (reference `gcn_lib/pos_embed.py:38-85`)."""
+    assert embed_dim % 4 == 0
+    gh_n, gw_n = ((grid_size, grid_size) if isinstance(grid_size, int)
+                  else grid_size)
+
+    def emb_1d(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_h = np.arange(gh_n, dtype=np.float32)
+    grid_w = np.arange(gw_n, dtype=np.float32)
+    # meshgrid(w, h): grid[0] varies along w (fastest axis), grid[1] along h.
+    gw, gh = np.meshgrid(grid_w, grid_h)
+    emb_h = emb_1d(embed_dim // 2, gw)
+    emb_w = emb_1d(embed_dim // 2, gh)
+    return np.concatenate([emb_h, emb_w], axis=1)
+
+
+def relative_pos_bias(embed_dim: int, grid_size) -> np.ndarray:
+    """-(2 * P P^T / dim): the additive KNN distance bias, (n, n) float32
+    (reference `gcn_lib/pos_embed.py:21-28` negated at
+    `torch_vertex.py:227`)."""
+    p = sincos_pos_embed_2d(embed_dim, grid_size)
+    rel = 2.0 * (p @ p.T) / p.shape[1]
+    return (-rel).astype(np.float32)
+
+
+def dense_knn(nodes: torch.Tensor, k: int, rel_pos: torch.Tensor
+              ) -> torch.Tensor:
+    """k nearest neighbours of every node, (B, N, k) int64.
+
+    nodes: (B, N, C); rel_pos: (N, N) float32.  Distances in float32 on the
+    L2-normalised features, without gradient (`gcn.py:67-88`)."""
+    with torch.no_grad():
+        x = nodes.float()
+        x = x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + 1e-24)
+        sq = torch.sum(x * x, dim=-1, keepdim=True)            # (B, N, 1)
+        dist = sq - 2.0 * torch.bmm(x, x.transpose(1, 2)) + sq.transpose(1, 2)
+        dist = dist + rel_pos.float()[None]
+        return torch.topk(-dist, min(k, dist.shape[-1]), dim=-1).indices
+
+
+def _conv1x1(in_ch: int, out_ch: int, groups: int = 1) -> nn.Sequential:
+    """Conv2d 1x1 wrapped as the reference's `Seq(Conv2d, ...)` (`.0`)."""
+    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, groups=groups))
+
+
+class _GraphConv(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.nn = _conv1x1(2 * ch, 2 * ch, groups=4)
+
+
+class _MRConv(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.gconv = _GraphConv(ch)
+
+
+class Grapher(nn.Module):
+    """Grapher_noBN (`gcn_lib/torch_vertex.py:181-227`): fc1, max-relative
+    graph conv, GELU, fc2, residual."""
+
+    def __init__(self, ch: int, grid: int, k: int = 9):
+        super().__init__()
+        self.k = k
+        self.fc1 = _conv1x1(ch, ch)
+        self.graph_conv = _MRConv(ch)
+        self.fc2 = _conv1x1(2 * ch, ch)
+        self.register_buffer(
+            "relative_pos",
+            torch.from_numpy(relative_pos_bias(ch, grid))[None])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        n = h * w
+        shortcut = x
+        nodes = self.fc1(x).reshape(b, c, n)                   # (B, C, N)
+        idx = dense_knn(nodes.transpose(1, 2), self.k,
+                        self.relative_pos[0])                  # (B, N, k)
+        kk = idx.shape[-1]
+        x_j = torch.gather(
+            nodes[:, :, None, :].expand(b, c, n, n), 3,
+            idx[:, None].expand(b, c, n, kk))                  # (B, C, N, k)
+        rel = torch.max(x_j - nodes[..., None], dim=-1).values  # (B, C, N)
+        # channel interleave [x, rel] -> 2C (`torch_vertex.py:28-29`)
+        mr = torch.stack([nodes, rel], dim=2).reshape(b, 2 * c, h, w)
+        mr = F.gelu(self.graph_conv.gconv.nn(mr))
+        return self.fc2(mr) + shortcut
+
+
+class FFN(nn.Module):
+    """`Unet.py:20-42`: fc1, GELU, fc2, residual."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.fc1 = _conv1x1(ch, ch)
+        self.fc2 = _conv1x1(ch, ch)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x))) + x
+
+
+class GCNBlock(nn.Module):
+    """pos_embed add + Grapher + FFN (reference `Unet.py:44-99`).  Drop-path
+    is inference-off, so the forward is deterministic."""
+
+    def __init__(self, ch: int, grid: int = 12, k: int = 9):
+        super().__init__()
+        self.grid = grid
+        self.pos_embed = nn.Parameter(torch.zeros(1, ch, grid, grid))
+        self.module = nn.Sequential(nn.Sequential(Grapher(ch, grid, k),
+                                                  FFN(ch)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape[2:]) != (self.grid, self.grid):
+            raise NotImplementedError(
+                f"GCN bottleneck {tuple(x.shape[2:])} is not the "
+                f"{self.grid}x{self.grid} grid: the whole-image pos-embed "
+                "resize is not ported yet (ROADMAP Queue 1 item 3)")
+        return self.module(x + self.pos_embed)
