@@ -11,8 +11,9 @@ against its plain PyTorch version on the card.  One JSON line per phase:
  1. device: the card's name and power limit (nvidia-smi);
  2. build: nvcc of the CUDA kernels for sm_90a, Triton's first compile;
  3. K1 (Triton skip concat) vs plain at the four Up shapes, B=60, f32/bf16;
- 4. K2 (CUDA double conv) vs plain (cuDNN) at the inc/down0..2 shapes,
-    B=60, f32/bf16;
+ 4. K2 (CUDA double conv on the tensor cores) vs plain (cuDNN) at the
+    inc/down0..2 shapes, B=60, f32/bf16, timed; then untimed at ragged and
+    padded shapes;
  5. the generator forward (8x1x256x256) with the kernels vs all-plain;
  6. end to end: synthetic 1080x1920 .hdr files -> PNGs in f32 and bf16,
     kernel launch counts of that run, warm frames/s, and a small image
@@ -46,6 +47,12 @@ K2_SHAPES = [("inc", 1, 32, 32, 256), ("down0", 32, 64, 64, 126),
 BATCH = 60                    # tiles of one 1080p frame at 256/64
 K1_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (8e-3, 1e-6)}  # (rtol, atol)
 K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max err / max |plain|
+# untimed: ragged sizes and channel counts that need padding, more input
+# channels than one staging chunk, more output channels than one pass
+K2_RAGGED = [(2, 16, 24, 16, 37, 40), (2, 8, 8, 8, 68, 32),
+             (3, 1, 24, 8, 29, 33), (2, 3, 5, 7, 5, 5),
+             (1, 144, 40, 72, 19, 35), (1, 20, 48, 100, 17, 25),
+             (1, 6, 96, 300, 13, 14)]       # (B, Cin, C1, C2, H, W)
 GEN_TOL = {"float32": 1e-3, "bfloat16": 0.1}  # sigmoid output, abs
 LOG: list = []
 
@@ -88,8 +95,16 @@ def phase_build():
     t0 = time.perf_counter()
     build.load_library("double_conv3x3.cu")
     info = build.build_info["double_conv3x3.cu"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    # ptxas -v, per kernel instantiation: registers, shared memory, spills
+    ptxas, entry = [], ""
+    for ln in info["log"].splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            # the mangled name; for the templated kernel, from its Cfg<...>
+            short = entry[entry.find("CfgI"):] if "CfgI" in entry else entry
+            ptxas.append({"entry": short[:64],
+                          "info": ln.replace("ptxas info    :", "").strip()})
     emit("build", kernel="fused_double_conv3x3", route="cuda",
          nvcc_seconds=info["seconds"],
          load_seconds=time.perf_counter() - t0, ptxas=ptxas)
@@ -136,29 +151,43 @@ def phase_k1(torch, dtypes):
 def phase_k2(torch, dtypes):
     import torch.nn.functional as F
     from uncltmo_tpu_torch.ops.kernels.double_conv import (
-        double_conv3x3_plain, fused_double_conv3x3)
+        double_conv3x3_plain, fused_double_conv3x3, pack_double_conv_weights)
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = {d: [] for d in dtypes}
+
+    def inputs(dtype, b, cin, c1, c2, h, w):
+        def rnd(*shape, std=1.0):
+            return (torch.randn(shape, generator=g, device="cuda")
+                    * std).to(dtype)
+        return (torch.rand((b, cin, h, w), generator=g,
+                           device="cuda").to(dtype),
+                rnd(c1, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5),
+                rnd(c1, std=0.1),
+                rnd(c2, c1, 3, 3, std=(2.0 / (9 * c1)) ** 0.5),
+                rnd(c2, std=0.1))
+
+    def check(dname, name, args):
+        out = fused_double_conv3x3(*args)      # packs in the call
+        ref = double_conv3x3_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if (out.shape != ref.shape
+                or not err <= K2_TOL[dname] * max(scale, 1e-6)):
+            raise AssertionError(f"K2 {dname} {name}: max err {err} "
+                                 f"(plain max {scale})")
+        return out, err, scale
+
     for dname, dtype in dtypes.items():
         for name, cin, c1, c2, s in K2_SHAPES:
-            def rnd(*shape, std=1.0):
-                return (torch.randn(shape, generator=g, device="cuda")
-                        * std).to(dtype)
-            x = torch.rand((BATCH, cin, s, s), generator=g,
-                           device="cuda").to(dtype)
-            w1 = rnd(c1, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5)
-            b1 = rnd(c1, std=0.1)
-            w2 = rnd(c2, c1, 3, 3, std=(2.0 / (9 * c1)) ** 0.5)
-            b2 = rnd(c2, std=0.1)
-            out = fused_double_conv3x3(x, w1, b1, w2, b2)
-            ref = double_conv3x3_plain(x, w1, b1, w2, b2)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            if not err <= K2_TOL[dname] * max(scale, 1e-6):
-                raise AssertionError(f"K2 {dname} {name}: max err {err} "
-                                     f"(plain max {scale})")
-            ms = time_ms(lambda: fused_double_conv3x3(x, w1, b1, w2, b2))
+            x, w1, b1, w2, b2 = inputs(dtype, BATCH, cin, c1, c2, s, s)
+            out, err, scale = check(dname, name, (x, w1, b1, w2, b2))
+            # as the model calls it: weights packed once, outside the call
+            packed = pack_double_conv_weights(w1, b1, w2, b2)
+            ms = time_ms(lambda: fused_double_conv3x3(x, w1, b1, w2, b2,
+                                                      packed=packed))
+            ms_packing = time_ms(
+                lambda: fused_double_conv3x3(x, w1, b1, w2, b2))
             plain = time_ms(lambda: double_conv3x3_plain(x, w1, b1, w2, b2))
 
             def cudnn():
@@ -171,11 +200,15 @@ def phase_k2(torch, dtypes):
             bms, by = bound_ms(nbytes, flops, dname)
             row = dict(dtype=dname, cell=name, shape=list(x.shape),
                        max_abs_err=err, plain_max_abs=scale, ms=ms,
-                       plain_ms=plain, library_ms=library, flops=flops,
+                       ms_packing_in_call=ms_packing, plain_ms=plain, library_ms=library, flops=flops,
                        tflops=flops / ms / 1e9, bound_ms=bms, bound_by=by)
             rows[dname].append(row)
             emit("k2", **row)
-            del x, out, ref
+            del x, out
+        for shape in K2_RAGGED:
+            _, err, scale = check(dname, shape, inputs(dtype, *shape))
+            emit("k2_ragged", dtype=dname, shape=list(shape),
+                 max_abs_err=err, plain_max_abs=scale)
     return rows
 
 
@@ -196,7 +229,8 @@ def phase_generator(torch, dtypes, seed):
             # plain versions (a comparison harness, not a port option)
             k1, k2 = blocks.fused_concat_skip, blocks.fused_double_conv3x3
             blocks.fused_concat_skip = concat_skip_plain
-            blocks.fused_double_conv3x3 = double_conv3x3_plain
+            blocks.fused_double_conv3x3 = (
+                lambda *args, packed=None: double_conv3x3_plain(*args))
             try:
                 ref, _ = model(x.to(dtype))
             finally:
@@ -251,7 +285,8 @@ def profile_frame(torch, dname, runner, loaded, top: int = 10) -> None:
     total_ms = sum(r[0] for r in rows) / 1e3
     emit("profile", dtype=dname, wall_ms=wall_ms, device_ms=total_ms,
          idle_share=max(0.0, 1.0 - total_ms / wall_ms) if wall_ms else None,
-         top=[{"kernel": k[:90], "ms": us / 1e3, "calls": n,
+         top=[{"kernel": k.replace("(anonymous namespace)::", "")[:90],
+               "ms": us / 1e3, "calls": n,
                "share": us / 1e3 / total_ms if total_ms else None}
               for us, k, n in rows[:top]])
 

@@ -7,7 +7,8 @@ port is installed:
 
 Tolerances: K1 exact (copies, an exact bf16 product, a correctly rounded
 sqrt); K2 rtol 1e-4 / atol 1e-4 in float32 (sums of up to 9*C1 terms in
-another order than cuDNN's), 2e-2 of the output scale in bfloat16 (the
+another order than cuDNN's, on the tensor cores as split-TF32 products;
+outputs are of order 1), 2e-2 of the output scale in bfloat16 (the
 intermediate is rounded to bf16 in both, so one flipped rounding moves an
 output by about a bf16 step).
 """
@@ -21,8 +22,13 @@ from uncltmo_tpu_torch.ops.kernels.double_conv import (double_conv3x3_plain,
 
 pytestmark = pytest.mark.cuda
 
-# (H, W, Cin, C1, C2): the tests/test_pallas.py shapes and the down1 cell
-K2_SHAPES = [(37, 40, 16, 24, 16), (68, 32, 8, 8, 8), (61, 61, 64, 128, 128)]
+# (H, W, Cin, C1, C2): the tests/test_pallas.py shapes, the four U-Net cells
+# (inc, down0, down1, down2), and two ragged shapes whose channel counts need
+# padding (Cin = 1 with two chunks of C1; more than 256 output channels)
+K2_SHAPES = [(37, 40, 16, 24, 16), (68, 32, 8, 8, 8), (61, 61, 64, 128, 128),
+             (256, 256, 1, 32, 32), (126, 126, 32, 64, 64),
+             (28, 28, 128, 256, 256), (29, 33, 1, 40, 24),
+             (13, 14, 6, 96, 300)]
 
 
 @pytest.fixture

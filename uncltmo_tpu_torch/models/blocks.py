@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
-from uncltmo_tpu_torch.ops.kernels.double_conv import fused_double_conv3x3
+from uncltmo_tpu_torch.ops.kernels.double_conv import (
+    fused_double_conv3x3, pack_double_conv_weights, weights_key)
 
 _NOT_PORTED = ("not ported yet: the port covers the published image "
                "configuration (ROADMAP Queue 1)")
@@ -58,10 +59,23 @@ class DoubleConv(nn.Module):
         _check_supported(unet_norm, activation)
         self.conv = nn.Conv2d(in_ch, out_ch, 3)
         self.conv1 = nn.Conv2d(out_ch, out_ch, 3)
+        self._packed = None        # (weights_key, PackedDoubleConv)
+
+    def _weights(self):
+        return (self.conv.weight, self.conv.bias, self.conv1.weight,
+                self.conv1.bias)
+
+    def packed_weights(self):
+        """The kernel's weight layout, packed once and again only after a
+        reload, a cast, a move or an in-place update of a parameter."""
+        key = weights_key(*self._weights())
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_double_conv_weights(*self._weights()))
+        return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_double_conv3x3(x, self.conv.weight, self.conv.bias,
-                                    self.conv1.weight, self.conv1.bias)
+        packed = self.packed_weights() if x.is_cuda else None
+        return fused_double_conv3x3(x, *self._weights(), packed=packed)
 
 
 class InConv(nn.Module):

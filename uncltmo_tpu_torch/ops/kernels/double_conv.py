@@ -2,18 +2,24 @@
 
 Replaces the TPU kernel `fused_double_conv3x3` (`uncltmo_tpu/ops/
 pallas_kernels.py:88-132`, oracle `double_conv3x3_reference` at `:241-250`).
-The CUDA C++ kernel is `csrc/double_conv3x3.cu` (its header says what bounds
-it on Hopper and how its design answers that); this module holds its plain
-PyTorch version and the ctypes wrapper.
+The CUDA C++ kernels are in `csrc/double_conv3x3.cu` (its header says what
+bounds them on Hopper and how the design answers that); this module holds
+the plain PyTorch version, the weight packing and the ctypes wrapper.
 
 Dispatch is by the tensor's device alone: CPU tensors take the plain
 version, CUDA tensors launch the kernel (a failed build or launch raises).
 The TPU kernel's `W*Cin % 128 == 0` rule is a Mosaic DMA constraint and
 does not apply here: any H, W >= 5 and any channel counts are accepted.
+
+The kernels read the weights in a packed layout (`pack_double_conv_weights`).
+Packing costs two small device copies, so a caller that runs the same
+weights many times packs once and passes the result as `packed`
+(`models/blocks.py:DoubleConv` keeps it, keyed on `weights_key`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +28,61 @@ from uncltmo_tpu_torch.ops.kernels.build import load_library
 
 _SOURCE = "double_conv3x3.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MMA_K = 16          # depth of one bfloat16 tensor-core product (float32: 8)
+
+
+class PackedDoubleConv(NamedTuple):
+    """Weights in the layout the kernel reads."""
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def padded_channels(cin: int, c1: int, c2: int):
+    """(Cin, C1, C2) as the kernel pads them: Cin to the bfloat16 MMA depth,
+    C1 to a multiple of 32 (the intermediate is walked in chunks of 32 or
+    64 channels), C2 to the output-channel width of a block (32, 64, 128 or
+    multiples of 256).  `csrc/double_conv3x3.cu` applies the same rule and refuses
+    anything else."""
+    c2p = next((n for n in (32, 64, 128) if c2 <= n), _round_up(c2, 256))
+    return _round_up(cin, MMA_K), _round_up(c1, 32), c2p
+
+
+def _pack_taps(w: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
+    """OIHW (N, K, 3, 3) -> [tap = 3*ky + kx][K padded to kp][N padded to
+    np_], zero in the padding: row `k` of tap `t` is the B operand row of
+    the implicit GEMM."""
+    n, k = w.shape[:2]
+    out = w.new_zeros((9, kp, np_))
+    out[:, :k, :n] = w.permute(2, 3, 1, 0).reshape(9, k, n)
+    return out
+
+
+def pack_double_conv_weights(w1: torch.Tensor, b1: torch.Tensor,
+                             w2: torch.Tensor,
+                             b2: torch.Tensor) -> PackedDoubleConv:
+    """Weights OIHW (C1, Cin, 3, 3), (C2, C1, 3, 3) and biases in the layout
+    the kernel reads: `[tap][Cin_p][C1_p]` and `[tap][C1_p][C2_p]`, channel
+    counts zero-padded as `padded_channels` says, in the weights' dtype.
+    Biases are kept as they are (contiguous)."""
+    c1, cin = w1.shape[:2]
+    cinp, c1p, c2p = padded_channels(cin, c1, w2.shape[0])
+    return PackedDoubleConv(_pack_taps(w1.detach(), cinp, c1p),
+                            b1.detach().contiguous(),
+                            _pack_taps(w2.detach(), c1p, c2p),
+                            b2.detach().contiguous())
+
+
+def weights_key(*params: torch.Tensor):
+    """What a cached packing depends on: a reload, a cast, a move or an
+    in-place update of any parameter changes the key."""
+    return tuple((p.data_ptr(), p.dtype, p.device, p._version)
+                 for p in params)
 
 
 def double_conv3x3_plain(x, w1, b1, w2, b2):
@@ -43,12 +104,16 @@ def _library() -> ctypes.CDLL:
 
 
 def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         packed: PackedDoubleConv | None = None
+                         ) -> torch.Tensor:
     """(B, Cin, H, W) -> (B, C2, H-4, W-4); weights OIHW (C1, Cin, 3, 3) and
     (C2, C1, 3, 3), biases (C1,), (C2,).
 
     The plain version on a CPU tensor; the CUDA kernel on a CUDA tensor
-    (counted in `fused_double_conv3x3.launches`)."""
+    (counted in `fused_double_conv3x3.launches`).  `packed` is
+    `pack_double_conv_weights` of the same four tensors; without it the
+    weights are packed in this call."""
     if x.device.type == "cpu":
         return double_conv3x3_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -71,17 +136,14 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"{tuple(x.shape)}")
     lib = _library()
     x = x.contiguous()
-    # [Cin][3][3][C1] and [C1][3][3][C2]: coalesced weight staging
-    w1t = w1.permute(1, 2, 3, 0).contiguous()
-    w2t = w2.permute(1, 2, 3, 0).contiguous()
-    b1 = b1.contiguous()
-    b2 = b2.contiguous()
+    if packed is None:
+        packed = pack_double_conv_weights(w1, b1, w2, b2)
     y = torch.empty((b, c2, h - 4, w - 4), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uncltmo_double_conv3x3(
-        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-        b2.data_ptr(), y.data_ptr(), b, cin, h, w, c1, c2,
-        _DTYPE_CODE[x.dtype], stream)
+        x.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(),
+        packed.w2.data_ptr(), packed.b2.data_ptr(), y.data_ptr(), b, cin, h,
+        w, c1, c2, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError("fused_double_conv3x3 launch failed: "
                            + lib.uncltmo_cuda_error_string(err).decode())
