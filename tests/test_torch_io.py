@@ -95,6 +95,54 @@ def test_bilinear_downscale_matches_cv2():
                                    rtol=1e-5, atol=1e-4)
 
 
+def test_directory_listing_follows_the_jax_rule(tmp_path):
+    """Which files of a directory are HDR input: the JAX package's tuple,
+    matched with its case.  `.exr` is listed by both (the port then refuses
+    to decode it, by name); `.HDR` and other files are listed by neither."""
+    from uncltmo_tpu.utils import io as jio
+    from uncltmo_tpu_torch.utils import io as tio
+    assert tio.HDR_EXTENSIONS == jio.HDR_EXTENSIONS
+    for n in ("b.hdr", "a.npy", "c.exr", "d.HDR", "e.Npy", "f.dng", "g.png",
+              "README"):
+        (tmp_path / n).write_bytes(b"")
+    ref = [n for n in sorted(os.listdir(tmp_path))
+           if os.path.splitext(n)[1] in jio.HDR_EXTENSIONS]
+    assert tio.list_hdr_names(str(tmp_path)) == ref == [
+        "a.npy", "b.hdr", "c.exr", "f.dng"]
+
+
+def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
+    """A directory with an `.exr` file is an error that names the ROADMAP,
+    not a silently shorter output; `x.HDR` is skipped, as the JAX runner
+    skips it."""
+    from uncltmo_tpu_torch.config import get_model_params
+    from uncltmo_tpu_torch.inference.runner import InferenceRunner
+    from uncltmo_tpu_torch.models.unet import UNetTMO
+    torch.manual_seed(0)
+    runner = InferenceRunner(dict(get_model_params("m"), filters=8), None,
+                             state_dict=UNetTMO(filters=8).state_dict(),
+                             device="cpu")
+    im = _hdr_image(5, 40, 50)
+    up = tmp_path / "upper"
+    up.mkdir()
+    write_radiance_hdr(str(up / "x.HDR"), im)
+    np.save(tmp_path / "lams.npy", {"x": 100.0, "y": 100.0})
+    lam = str(tmp_path / "lams.npy")
+    assert runner.run_on_path(str(up), str(tmp_path / "o"), lam,
+                              scale=1) == []
+    exr = tmp_path / "exr"
+    exr.mkdir()
+    (exr / "y.exr").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        runner.run_on_path(str(exr), str(tmp_path / "o"), lam, scale=1)
+    scenes = tmp_path / "scenes"
+    (scenes / "y").mkdir(parents=True)
+    (scenes / "y" / "000.exr").write_bytes(b"")
+    (scenes / "y" / "001.HDR").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        runner.run_on_video_path(str(scenes), str(tmp_path / "o"), lam)
+
+
 def _port_sources():
     for d, _, files in os.walk(PORT):
         for f in files:
@@ -132,6 +180,12 @@ def test_cli_help_and_msgpack_refusal(tmp_path):
          "--help"], capture_output=True, text=True, env=env, cwd=ROOT,
         timeout=120)
     assert out.returncode == 0 and "--device" in out.stdout
+    out = subprocess.run(
+        [sys.executable, "-m", "uncltmo_tpu_torch.cli.test_videoTMO",
+         "--help"], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=120)
+    assert out.returncode == 0 and "--scene_batch" in out.stdout
+    assert "--device" in out.stdout
     from uncltmo_tpu_torch.cli.test_imageTMO import find_net_path
     (tmp_path / "w.msgpack").write_bytes(b"")
     with pytest.raises(SystemExit, match="export_checkpoint"):

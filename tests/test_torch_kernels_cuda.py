@@ -74,6 +74,44 @@ def test_k2_kernel_matches_plain(cuda_device, dtype, h, w, cin, c1, c2):
         assert err <= 2e-2 * ref.float().abs().max().item()
 
 
+# a batch of 120 tiles (two 1080p scenes in one video frame step) and one
+# plane of a whole 1080p frame (B = 1, ragged right and bottom edges)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(120, 64, 122, 122), (1, 64, 538, 962)],
+                         ids=["b120_tile", "b1_plane"])
+def test_k1_kernel_at_video_and_whole_image_shapes(cuda_device, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x2 = torch.rand(shape, generator=g, device="cuda").to(dtype)
+    x1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    assert torch.equal(fused_concat_skip(x2, x1), concat_skip_plain(x2, x1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,c1,c2,h,w",
+                         [(120, 64, 128, 128, 61, 61),
+                          (1, 32, 64, 64, 542, 966)],
+                         ids=["b120_tile", "b1_plane"])
+def test_k2_kernel_at_video_and_whole_image_shapes(cuda_device, dtype, b, cin,
+                                                   c1, c2, h, w):
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * std).to(dtype)
+
+    x = torch.rand((b, cin, h, w), generator=g, device="cuda").to(dtype)
+    args = (x, rnd(c1, cin, 3, 3, std=(2 / (9 * cin)) ** 0.5), rnd(c1),
+            rnd(c2, c1, 3, 3, std=(2 / (9 * c1)) ** 0.5), rnd(c2))
+    out = fused_double_conv3x3(*args)
+    ref = double_conv3x3_plain(*args)
+    assert out.shape == ref.shape == (b, c2, h - 4, w - 4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item()
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.rand(1, 4, 4, 9, device=cuda_device)
     w1, b1 = torch.rand(6, 4, 3, 3, device=cuda_device), torch.rand(

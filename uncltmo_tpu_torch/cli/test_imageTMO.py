@@ -53,19 +53,23 @@ def get_args(argv=None):
                         help="estimate missing lambdas before running "
                              "(not ported yet)")
     parser.add_argument("--whole_image", type=int, default=0,
-                        help="non-tiled whole-image forward (not ported "
-                             "yet)")
+                        help="non-tiled whole-image forward with bicubic "
+                             "pad removal (the reference's "
+                             "run_model_on_single_image protocol)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda)")
     return parser.parse_args(argv)
 
 
-def find_net_path(model_path: str, net_name: str = "") -> str:
-    """The `.pth` checkpoint to load; `.msgpack` is refused with the
-    conversion command."""
+def find_net_path(model_path: str, net_name: str = "",
+                  candidates=("net_epoch5_iter62.pth", "trained_weights.pth")
+                  ) -> str:
+    """The `.pth` checkpoint to load: `net_name`, else the first of
+    `candidates` that exists, else the first `.pth` of the directory;
+    `.msgpack` is refused with the conversion command."""
     path = os.path.join(model_path, net_name) if net_name else None
     if path is None:
-        for cand in ("net_epoch5_iter62.pth", "trained_weights.pth"):
+        for cand in candidates:
             if os.path.exists(os.path.join(model_path, cand)):
                 path = os.path.join(model_path, cand)
                 break

@@ -1,9 +1,12 @@
 """Batched tiled-inference engine (port of `uncltmo_tpu/inference/engine.py`,
-image paths).
+image and video paths).
 
 Tiles are cut from the padded log-luma frame, run through the generator in
 batches ("chunks"), weighted by the partition-of-unity masks `wy ⊗ wx` of
-the tile plan and summed into a float32 canvas.  PyTorch runs eagerly, so
+the tile plan and summed into a float32 canvas.  A video tile is the full
+frame sequence of one spatial tile, (T, t, t); the temporal recurrence runs
+per tile (`video_apply`), so a chunk of video tiles is one conv batch per
+frame step, and the canvas is (T, H, W).  PyTorch runs eagerly, so
 the JAX engine's compile-time split into an unrolled and a streamed program
 (`engine.py:30-43`) becomes one Python chunk loop that builds each chunk's
 masks from the per-axis weights (the dense (N, t, t) mask array is never
@@ -16,7 +19,15 @@ JAX engine exactly:
 * larger plans: equalised chunks, padded with tiles cut at origin (0, 0)
   that carry zero weight;
 * `run_images`: the tiles of `frames_per_step` frames form one batch
-  (plans of <= 120 tiles).
+  (plans of <= 120 tiles);
+* `run_videos`: the S*N video tiles of S scenes form one batch per frame
+  step, without padding (plans of <= 120 tiles; larger plans run scene by
+  scene).
+
+The JAX engine's `mesh=` sharding of the tile batch is not ported
+(multi-card work is ROADMAP Queue 1 item 5), nor is `run_images`'
+`post_name` contract, which keys a compile cache that eager PyTorch does
+not have.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import torch
 
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.inference.tiling import axis_plan
+from uncltmo_tpu_torch.models.unet import video_apply
 
 # Plans above this many tiles run in equalised chunks of ~120 tiles
 # (`engine.py:43`, `:174-201`).
@@ -97,44 +109,53 @@ class TileEngine:
         return self._plans[key]
 
     def _forward(self, tiles: torch.Tensor) -> torch.Tensor:
-        """(N, 1, t, t) tiles -> (N, t, t) float32 generator outputs."""
+        """(N, t, t) image tiles or (N, T, t, t) video tiles -> float32
+        generator outputs of the same shape."""
         with torch.no_grad():
-            out, _ = self.model(tiles.to(self.dtype))
-        return out.float()[:, 0]
+            x = tiles.unsqueeze(-3).to(self.dtype)
+            if tiles.dim() == 4:
+                out, _ = video_apply(self.model, x, with_features=False)
+            else:
+                out, _ = self.model(x)
+        return out.float().squeeze(-3)
 
-    def _cut(self, image_hw: torch.Tensor, oy, ox) -> torch.Tensor:
+    def _cut(self, image: torch.Tensor, oy, ox) -> torch.Tensor:
+        """(H, W) or (T, H, W) -> (N, t, t) or (N, T, t, t)."""
         t = self.tile
-        return torch.stack([image_hw[y:y + t, x:x + t]
-                            for y, x in zip(oy, ox)])[:, None]
+        return torch.stack([image[..., y:y + t, x:x + t]
+                            for y, x in zip(oy, ox)])
 
     def _blend(self, canvas: torch.Tensor, outs: torch.Tensor, wy, wx, oy,
                ox, streamed: bool) -> None:
-        """Add the weighted tiles into the (H, W) canvas in place.  The
-        unrolled JAX path multiplies by the mask wy ⊗ wx, the streamed one
-        by wy then wx; the same order keeps float32 results identical."""
-        if streamed:
-            weighted = outs * wy[:, :, None] * wx[:, None, :]
-        else:
-            weighted = outs * (wy[:, :, None] * wx[:, None, :])
+        """Add the weighted tiles into the (H, W) or (T, H, W) canvas in
+        place.  The unrolled JAX path multiplies by the mask wy ⊗ wx, the
+        streamed one by wy then wx; the same order keeps float32 results
+        identical."""
+        wy, wx = wy[:, :, None], wx[:, None, :]
+        if outs.dim() == 4:
+            wy, wx = wy[:, None], wx[:, None]
+        weighted = outs * wy * wx if streamed else outs * (wy * wx)
         t = self.tile
         for i, (y, x) in enumerate(zip(oy, ox)):
-            canvas[y:y + t, x:x + t] += weighted[i]
+            canvas[..., y:y + t, x:x + t] += weighted[i]
 
-    def _run_frame(self, image_hw: torch.Tensor) -> torch.Tensor:
-        h, w = image_hw.shape
+    def _run_frame(self, image: torch.Tensor) -> torch.Tensor:
+        """One (H, W) frame or one (T, H, W) scene through its tile plan."""
+        h, w = image.shape[-2:]
         oy, ox, wy, wx, n = self._plan(h, w)
         chunk = self._chunk_for(n)
         n_pad = _round_up(n, chunk)
         streamed = n > STREAM_TILE_THRESHOLD
-        canvas = torch.zeros((h, w), dtype=torch.float32, device=self.device)
+        canvas = torch.zeros(image.shape, dtype=torch.float32,
+                             device=self.device)
         for c0 in range(0, n_pad, chunk):
             real = range(c0, min(c0 + chunk, n))
-            tiles = self._cut(image_hw, oy[real.start:real.stop],
+            tiles = self._cut(image, oy[real.start:real.stop],
                               ox[real.start:real.stop])
             n_fill = chunk - len(real)
             if n_fill:
                 if streamed:     # origin-(0, 0) tiles, zero weight
-                    fill = self._cut(image_hw, [0] * n_fill, [0] * n_fill)
+                    fill = self._cut(image, [0] * n_fill, [0] * n_fill)
                 else:            # zero tiles
                     fill = torch.zeros((n_fill,) + tiles.shape[1:],
                                        dtype=tiles.dtype, device=tiles.device)
@@ -144,6 +165,24 @@ class TileEngine:
             self._blend(canvas, outs, wy[sl], wx[sl], oy[sl], ox[sl],
                         streamed)
         return canvas
+
+    def _run_group(self, group: torch.Tensor) -> list:
+        """(G, H, W) frames or (G, T, H, W) scenes -> G canvases.  The tiles
+        of the whole group share one conv batch, unpadded (plans of <= 120
+        tiles); larger plans run member by member in chunks."""
+        h, w = group.shape[-2:]
+        oy, ox, wy, wx, n = self._plan(h, w)
+        if n > STREAM_TILE_THRESHOLD:
+            return [self._run_frame(member) for member in group]
+        tiles = torch.cat([self._cut(member, oy, ox) for member in group])
+        outs = self._forward(tiles)
+        canvases = []
+        for o in outs.reshape(group.shape[0], n, *outs.shape[1:]):
+            canvas = torch.zeros(group.shape[1:], dtype=torch.float32,
+                                 device=self.device)
+            self._blend(canvas, o, wy, wx, oy, ox, False)
+            canvases.append(canvas)
+        return canvases
 
     def run_image(self, image_hw1: torch.Tensor) -> torch.Tensor:
         """(H, W, 1) padded log-luma -> (H, W, 1) tone-mapped luma (f32)."""
@@ -159,29 +198,29 @@ class TileEngine:
         <= 120 tiles; larger plans run frame by frame in chunks, as
         `engine.py:374-411`).  `post_fn(frame_result)` is applied to each
         (H, W, 1) result.  F must be a multiple of frames_per_step."""
-        f, h, w = (int(frames_fhw1.shape[0]), int(frames_fhw1.shape[1]),
-                   int(frames_fhw1.shape[2]))
+        f = int(frames_fhw1.shape[0])
         g = frames_per_step
         if f % g:
             raise ValueError(f"{f} frames is not a multiple of "
                              f"frames_per_step={g}")
         frames = frames_fhw1.to(self.device)[..., 0]
-        oy, ox, wy, wx, n = self._plan(h, w)
         results = []
         for g0 in range(0, f, g):
-            group = frames[g0:g0 + g]
-            if n > STREAM_TILE_THRESHOLD:
-                outs = [self._run_frame(fr) for fr in group]
-            else:
-                tiles = torch.cat([self._cut(fr, oy, ox) for fr in group])
-                per_frame = self._forward(tiles).reshape(g, n, *tiles.shape[2:])
-                outs = []
-                for o in per_frame:
-                    canvas = torch.zeros((h, w), dtype=torch.float32,
-                                         device=self.device)
-                    self._blend(canvas, o, wy, wx, oy, ox, False)
-                    outs.append(canvas)
-            for canvas in outs:
+            for canvas in self._run_group(frames[g0:g0 + g]):
                 res = canvas[..., None]
                 results.append(post_fn(res) if post_fn else res)
         return torch.stack(results)
+
+    def run_video(self, video_thw1: torch.Tensor) -> torch.Tensor:
+        """(T, H, W, 1) padded log-luma frames -> (T, H, W, 1) (f32)."""
+        video = video_thw1.to(self.device)[..., 0]
+        return self._run_frame(video)[..., None]
+
+    def run_videos(self, scenes_sthw1: torch.Tensor) -> torch.Tensor:
+        """(S, T, H, W, 1) padded log-luma scenes -> (S, T, H, W, 1).
+
+        The serving path: independent scenes have independent carries, so
+        each recurrent frame step runs the S*N tiles of all scenes as one
+        conv batch (`engine.py:549-606`)."""
+        scenes = scenes_sthw1.to(self.device)[..., 0]
+        return torch.stack(self._run_group(scenes))[..., None]

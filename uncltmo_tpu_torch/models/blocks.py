@@ -1,4 +1,4 @@
-"""U-Net building blocks (NCHW), the published image configuration.
+"""U-Net building blocks (NCHW), the published configuration.
 
 Port of `uncltmo_tpu/models/blocks.py` (reference `unet_parts.py`).  Module
 attribute names follow the reference `.pth` layout, so `state_dict()` keys
@@ -14,7 +14,8 @@ are those of a published checkpoint (`inc.conv.conv`,
   weights (the JAX package stores the flipped kernel of a full-pad conv;
   `utils/convert.py` undoes that).
 * Other con_operators, norms, `up_mode` and `bilinear` are not part of the
-  published image path and raise NotImplementedError (ROADMAP Queue 1).
+  published configuration and raise NotImplementedError (ROADMAP Queue 1
+  item 4).
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights, weights_key)
 
-_NOT_PORTED = ("not ported yet: the port covers the published image "
-               "configuration (ROADMAP Queue 1)")
+_NOT_PORTED = ("not ported yet: the port covers the published generator "
+               "configuration (ROADMAP Queue 1 item 4)")
 
 
 def _pad_mode(padding_mode: str) -> str:

@@ -1,4 +1,4 @@
-"""ViG-style GCN bottleneck (NCHW), the exact-grid case of the tiled path.
+"""ViG-style GCN bottleneck (NCHW).
 
 Port of `uncltmo_tpu/models/gcn.py` (reference `gcn_lib/` and
 `Unet.py:20-99`).  Attribute names follow the reference `.pth` layout:
@@ -15,9 +15,12 @@ Numerics as in the JAX package:
 `topk` may order tied neighbours differently from `lax.top_k`; the max over
 neighbours only sees which set is chosen.
 
-Bottlenecks that are not gcn_grid x gcn_grid (the whole-image path's
-bicubic pos-embed resize, `gcn.py:205-215`) raise NotImplementedError
-(ROADMAP Queue 1 item 3).
+A bottleneck that is not gcn_grid x gcn_grid (whole-image inference) gets
+the pos-embed bicubic-resized to its (h, w) and the relative-position bias
+regenerated for the rectangular layout, as the JAX package does
+(`gcn.py:143-156`, `:203-216`).  The regenerated table is no buffer: it
+never enters `state_dict()`, so reference `.pth` files go on loading with
+strict=True.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from uncltmo_tpu_torch.ops.resize import bicubic_resize
 
 
 def sincos_pos_embed_2d(embed_dim: int, grid_size) -> np.ndarray:
@@ -100,9 +105,29 @@ class Grapher(nn.Module):
         self.fc1 = _conv1x1(ch, ch)
         self.graph_conv = _MRConv(ch)
         self.fc2 = _conv1x1(2 * ch, ch)
+        self.ch = ch
+        self.grid = grid
         self.register_buffer(
             "relative_pos",
             torch.from_numpy(relative_pos_bias(ch, grid))[None])
+        self._regenerated = None     # ((h, w, device), (N, N) float32 table)
+
+    def _relative_pos_for(self, h: int, w: int, device) -> torch.Tensor:
+        """The (N, N) bias of an (h, w) bottleneck: the stored buffer on the
+        grid, else regenerated from the sincos geometry.  The product is
+        taken in float64 on the tensor's device and rounded once, so the
+        table equals the JAX package's host-built one to float32 rounding.
+        A whole 1080p frame has 64 x 117 = 7,488 nodes and a 224 MB table,
+        so only the last shape is kept."""
+        if (h, w) == (self.grid, self.grid):
+            return self.relative_pos[0]
+        key = (h, w, torch.device(device))
+        if self._regenerated is None or self._regenerated[0] != key:
+            p = torch.from_numpy(sincos_pos_embed_2d(self.ch, (h, w))).to(
+                device)
+            table = (p @ p.T).mul_(2.0).div_(p.shape[1]).neg_().float()
+            self._regenerated = (key, table)
+        return self._regenerated[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -110,7 +135,7 @@ class Grapher(nn.Module):
         shortcut = x
         nodes = self.fc1(x).reshape(b, c, n)                   # (B, C, N)
         idx = dense_knn(nodes.transpose(1, 2), self.k,
-                        self.relative_pos[0])                  # (B, N, k)
+                        self._relative_pos_for(h, w, x.device))  # (B, N, k)
         kk = idx.shape[-1]
         x_j = torch.gather(
             nodes[:, :, None, :].expand(b, c, n, n), 3,
@@ -146,9 +171,9 @@ class GCNBlock(nn.Module):
                                                   FFN(ch)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pos = self.pos_embed
         if tuple(x.shape[2:]) != (self.grid, self.grid):
-            raise NotImplementedError(
-                f"GCN bottleneck {tuple(x.shape[2:])} is not the "
-                f"{self.grid}x{self.grid} grid: the whole-image pos-embed "
-                "resize is not ported yet (ROADMAP Queue 1 item 3)")
-        return self.module(x + self.pos_embed)
+            # the reference adds the fixed grid by broadcast and fails on
+            # any other bottleneck; the JAX package resizes the embedding
+            pos = bicubic_resize(pos.to(x.dtype), x.shape[2], x.shape[3])
+        return self.module(x + pos)

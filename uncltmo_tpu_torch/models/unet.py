@@ -1,7 +1,7 @@
-"""The tone-mapping U-Net generator (NCHW), image forward.
+"""The tone-mapping U-Net generator (NCHW), image and video.
 
-Port of `uncltmo_tpu/models/unet.py:61-234` (reference
-`Unet_singleFrame.py`), published configuration: depth 4, 32 filters,
+Port of `uncltmo_tpu/models/unet.py` (reference `Unet_singleFrame.py` for
+images, `Unet.py` for video), published configuration: depth 4, 32 filters,
 `square_and_square_root`, doubleConvTranspose, relu, no norm, sigmoid, 2x2
 ConvT upsample.  Size flow for a 256 tile (valid convs):
 
@@ -16,12 +16,19 @@ ConvT upsample.  Size flow for a 256 tile (valid convs):
     up3  126->252 +s0 -> 256              K1
     outc -> sigmoid
 
-The video recurrence (`frame` with a carry, `feature_head`) is not ported
-yet (ROADMAP Queue 1 item 2): `frame` takes no carry.
+One module serves both: `frame` is the single-frame forward that also
+threads the temporal carry.  The carry holds the first 1/32 of the channels
+at eight positions (after inc, down0..2, the GCN and up0..2: 1, 2, 4, 8, 8,
+4, 2, 1 channels at 32 filters); at frame k > 0 the first 1/32 channels of
+what the next layer reads are replaced by the previous frame's slice
+(reference `Unet.py:229-272`).  The skips stay unspliced.  `video_apply`
+loops `frame` over a (B, T, C, H, W) clip.  Batch-norm statistics and
+drop-path randomness across frames are training matters and wait for the
+training slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,24 +36,51 @@ import torch.nn as nn
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.models import blocks
 from uncltmo_tpu_torch.models.gcn import GCNBlock
+from uncltmo_tpu_torch.ops.preprocess import crop_center_batch
+from uncltmo_tpu_torch.ops.windows import adaptive_avg_pool_1, contrast_map
+
+Carry = Optional[List[torch.Tensor]]
+
+
+def _rec_slice(x: torch.Tensor, ratio: float) -> torch.Tensor:
+    """The first int(C * ratio) channels of x, as a copy: the tensor it is
+    cut from may be overwritten by `_splice` later in the same frame, and a
+    view would also keep the whole activation alive until the next frame."""
+    return x[:, :int(x.shape[1] * ratio)].clone()
+
+
+def _splice(x: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
+    """x with its first rec.shape[1] channels replaced by rec.  Written in
+    place where autograd does not need x as it was (inference): x is always
+    a fresh activation that nothing else reads, and the copy of a whole
+    activation is saved.  Under autograd a new tensor is built."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.cat([rec, x[:, rec.shape[1]:]], 1)
+    x[:, :rec.shape[1]] = rec
+    return x
 
 
 class UNetTMO(nn.Module):
     """Generator.  forward: (B, C, H, W) -> (tone-mapped (B, 1, H, W), last
-    decoder feature map)."""
+    decoder feature map).  `to_crop` is the add_frame protocol's output
+    crop (reference `Unet_singleFrame.py:106,210-211`)."""
 
     def __init__(self, n_channels: int = 1, output_dim: int = 1,
                  last_layer: str = "sigmoid", depth: int = 4,
                  con_operator: str = params.SQUARE_AND_SQUARE_ROOT,
                  filters: int = 32, unet_norm: str = "none",
                  activation: str = "relu", padding_mode: str = "edge",
-                 stretch_g: str = "none", gcn_grid: int = params.GCN_GRID):
+                 stretch_g: str = "none", gcn_grid: int = params.GCN_GRID,
+                 recurrent_ch_ratio: float = params.RECURRENT_CH_RATIO,
+                 to_crop: bool = False):
         super().__init__()
         if stretch_g not in ("none", "batchMax", "instanceMinMax"):
             raise ValueError(f"Unsupported stretch_g: {stretch_g}")
         self.depth = depth
         self.last_layer = last_layer
         self.stretch_g = stretch_g
+        self.recurrent_ch_ratio = recurrent_ch_ratio
+        self.to_crop = to_crop
         f = filters
         self.inc = blocks.InConv(n_channels, f, unet_norm, activation)
         ch = f
@@ -70,17 +104,36 @@ class UNetTMO(nn.Module):
         self.up_path = nn.ModuleList(ups)
         self.outc = blocks.OutConv(ch, output_dim)
 
-    def frame(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Single-frame forward without a recurrence carry
-        (`unet.py:120-168` with carry=None).  Returns (x_out, up_x)."""
+    def frame(self, x: torch.Tensor, carry: Carry = None
+              ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+        """Single-frame forward (`unet.py:120-168`).  carry: the previous
+        frame's eight slices, or None (first frame, image mode).  Returns
+        (x_out, up_x, new_carry)."""
+        r = self.recurrent_ch_ratio
         next_x = self.inc(x)
         skips = [next_x]
-        for layer in self.down_path:
-            next_x = layer(next_x)
+        new_carry = [_rec_slice(next_x, r)]
+        for i, layer in enumerate(self.down_path):
+            pool, cell = layer.mpconv
+            fea = pool(next_x)
+            if carry is not None and carry[i].shape[1]:
+                # the max pool works channel by channel, so splicing its
+                # output with the pooled slice equals pooling the spliced
+                # input, and the skip stays as it was without a copy
+                # (below 32 channels the slice is empty)
+                fea = _splice(fea, pool(carry[i]))
+            next_x = cell(fea)
             skips.append(next_x)
+            if i < self.depth - 1:
+                new_carry.append(_rec_slice(next_x, r))
         up_x = self.gcn(skips[self.depth])
+        new_carry.append(_rec_slice(up_x, r))
         for i, layer in enumerate(self.up_path):
+            if carry is not None:
+                up_x = _splice(up_x, carry[self.depth + i])
             up_x = layer(up_x, skips[self.depth - (i + 1)])
+            if i < self.depth - 1:
+                new_carry.append(_rec_slice(up_x, r))
         x_out = blocks.last_layer_fn(self.last_layer)(self.outc(up_x))
         if self.stretch_g == "batchMax":
             x_out = x_out / x_out.max()
@@ -89,11 +142,44 @@ class UNetTMO(nn.Module):
             xmax = flat.max(dim=1).values.reshape(-1, 1, 1, 1)
             xmin = flat.min(dim=1).values.reshape(-1, 1, 1, 1)
             x_out = (x_out - xmin) / (xmax - xmin + params.EPSILON)
-        return x_out, up_x
+        return x_out, up_x, new_carry
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Image-mode forward (reference `Unet_singleFrame.py:177-213`)."""
-        return self.frame(x)
+    def forward(self, x: torch.Tensor, apply_crop: bool = False,
+                diffY: int = 0, diffX: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Image-mode forward (reference `Unet_singleFrame.py:177-213`).
+        apply_crop / diffY / diffX: the add_frame output crop, active only
+        in a module built with `to_crop`."""
+        out, up_x, _ = self.frame(x)
+        if apply_crop and self.to_crop and (diffY or diffX):
+            out = crop_center_batch(out, diffY, diffX)
+        return out, up_x
+
+    def feature_head(self, up_x: torch.Tensor) -> torch.Tensor:
+        """Per-frame contrastive feature, avgpool(up_x) ++ avgpool(contrast
+        map of up_x) (reference `Unet.py:274-278`): (B, F, H, W) -> (B, 2F)."""
+        fea1 = adaptive_avg_pool_1(up_x)
+        fea2 = adaptive_avg_pool_1(contrast_map(up_x))
+        return torch.cat([fea1, fea2], 1).reshape(up_x.shape[0], -1)
+
+
+def video_apply(model: UNetTMO, x_btchw: torch.Tensor,
+                with_features: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, C, H, W) -> ((B, T, 1, H, W) outputs, (B, T, 2F) features):
+    the reference's frame loop (`Unet.py:218-286`).  Frame 0 builds the
+    carry, every later frame reads the one before it.  `with_features`
+    toggles the contrastive feature head (an 11x11 depthwise conv per
+    frame that tiled inference does not need); without it the features are
+    (B, T, 0)."""
+    carry = None
+    outs, feats = [], []
+    for k in range(x_btchw.shape[1]):
+        out, up_x, carry = model.frame(x_btchw[:, k], carry)
+        outs.append(out)
+        feats.append(model.feature_head(up_x) if with_features
+                     else out.new_zeros((out.shape[0], 0)))
+    return torch.stack(outs, 1), torch.stack(feats, 1)
 
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
@@ -124,6 +210,17 @@ def bottleneck_grid(input_size: int, depth: int = 4) -> int:
     return n
 
 
+def min_input_size(depth: int = 4) -> int:
+    """The smallest H or W the valid-conv U-Net can take: the last Down's
+    3x3 conv needs 3 pixels after its pool (depth 4: 108).  Below it torch
+    refuses the conv; XLA's valid conv returns an empty array instead, and
+    the JAX package goes on to a frame made of biases alone."""
+    n = 2 * 3                                # last_down: pool, then conv3x3
+    for _ in range(depth - 1):
+        n = 2 * (n + 4)                      # down: pool, then double conv
+    return n + 4                             # inc
+
+
 def make_generator(opt=None, **overrides) -> UNetTMO:
     """Build a generator from a config object with reference flag names
     (`config.Options`)."""
@@ -132,17 +229,16 @@ def make_generator(opt=None, **overrides) -> UNetTMO:
         if int(getattr(opt, "convtranspose_kernel", 2)) != 2:
             raise ValueError("convtranspose_kernel != 2 is not supported "
                              "(published configs use 2)")
-        if (not opt.g_doubleConvTranspose or opt.up_mode or opt.bilinear
-                or opt.add_frame):
+        if not opt.g_doubleConvTranspose or opt.up_mode or opt.bilinear:
             raise NotImplementedError(
-                "only the published doubleConvTranspose / 2x2-ConvT / "
-                "add_frame=0 generator is ported (ROADMAP Queue 1)")
+                "only the published doubleConvTranspose / 2x2-ConvT "
+                "generator is ported (ROADMAP Queue 1 item 4)")
         kw = dict(
             n_channels=opt.input_dim, output_dim=opt.output_dim,
             last_layer=opt.last_layer, depth=opt.unet_depth,
             con_operator=opt.con_operator, filters=opt.filters,
             unet_norm=opt.unet_norm, activation=opt.g_activation,
             padding_mode="edge" if opt.padding == "replicate" else opt.padding,
-            stretch_g=opt.stretch_g)
+            stretch_g=opt.stretch_g, to_crop=bool(opt.add_frame))
     kw.update(overrides)
     return UNetTMO(**kw)

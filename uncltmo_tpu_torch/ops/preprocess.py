@@ -1,5 +1,6 @@
 """HDR preprocessing on (H, W, C) tensors: the lambda-log luma, the U-Net
-grid pad and its crop (port of `uncltmo_tpu/ops/preprocess.py:16-80`)."""
+grid pad and its crop, and the add_frame models' batch centre crop (port of
+`uncltmo_tpu/ops/preprocess.py:16-98`)."""
 from __future__ import annotations
 
 import torch
@@ -63,3 +64,20 @@ def crop_frame(im: torch.Tensor, diff_y: int, diff_x: int) -> torch.Tensor:
         return im
     return im[diff_y // 2: im.shape[0] - (diff_y - diff_y // 2),
               diff_x // 2: im.shape[1] - (diff_x - diff_x // 2)]
+
+
+def crop_center_batch(x: torch.Tensor, diff_y: int, diff_x: int
+                      ) -> torch.Tensor:
+    """Centre crop of an NCHW batch by (diff_y, diff_x): the reference's
+    `crop_input_hdr_batch` (`utils/data_loader_util.py:165-172`) with its
+    `int(round(d / 2))` start index, which for d % 4 == 3 is one row off
+    the (d//2, d - d//2) replicate pad.  Kept as it is: the crop only runs
+    on the add_frame model path, where the reference's behaviour is the
+    specification."""
+    if diff_y == 0 and diff_x == 0:
+        return x
+    h, w = x.shape[2], x.shape[3]
+    th, tw = h - diff_y, w - diff_x
+    i = int(round((h - th) / 2.0))
+    j = int(round((w - tw) / 2.0))
+    return x[:, :, i:i + th, j:j + tw]

@@ -1,4 +1,4 @@
-"""Constants of the image tone-mapping path (reference `utils/params.py`)."""
+"""Constants of the tone-mapping paths (reference `utils/params.py`)."""
 
 # GCN bottleneck grid of a 256 tile (see models/unet.py for the size flow).
 GCN_GRID = 12
@@ -16,3 +16,8 @@ REC601 = (0.299, 0.587, 0.114)
 # `utils/model_save_util.py:303-304`).
 TILE = 256
 TILE_OVERLAP = 64
+TILE_OVERLAP_FULL_RES = 192
+
+# Video recurrence: the share of channels carried from the previous frame at
+# each of the eight carry positions (reference `Unet.py:229-272`).
+RECURRENT_CH_RATIO = 1 / 32

@@ -12,9 +12,20 @@ import zlib
 
 import numpy as np
 
-# The formats this reader decodes (the JAX package also takes .exr/.dng
-# through cv2/imageio).
-HDR_EXTENSIONS = (".hdr", ".npy")
+# The extensions a directory listing takes as HDR input, matched with their
+# case as the JAX package does (`uncltmo_tpu/utils/io.py:28`): `a.HDR` is
+# not listed by either.
+HDR_EXTENSIONS = (".hdr", ".dng", ".exr", ".npy")
+# Listed, but with no decoder here yet (the JAX package reads them through
+# cv2 / imageio): `read_hdr_image` refuses them by name.
+UNDECODED_EXTENSIONS = (".dng", ".exr")
+
+
+def list_hdr_names(directory: str) -> list:
+    """The sorted file names of `directory` that the runners take as HDR
+    input."""
+    return sorted(n for n in os.listdir(directory)
+                  if os.path.splitext(n)[1] in HDR_EXTENSIONS)
 
 _RES_RE = re.compile(rb"^-Y (\d+) \+X (\d+)$")
 
@@ -109,7 +120,12 @@ def read_hdr_image(path: str) -> np.ndarray:
         return np.load(path, allow_pickle=True).astype("float32")
     if ext == ".hdr":
         return read_radiance_hdr(path)
-    raise IOError(f"no reader for {path} (supported: {HDR_EXTENSIONS})")
+    if ext in UNDECODED_EXTENSIONS:
+        raise NotImplementedError(
+            f"{path}: the port has no {ext} decoder yet (ROADMAP Queue 3; "
+            "the JAX package reads it through cv2 / imageio); convert the "
+            "file to .hdr or .npy")
+    raise IOError(f"no reader for {path} (listed: {HDR_EXTENSIONS})")
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
