@@ -11,14 +11,26 @@ another order than cuDNN's, on the tensor cores as split-TF32 products;
 outputs are of order 1), 2e-2 of the output scale in bfloat16 (the
 intermediate is rounded to bf16 in both, so one flipped rounding moves an
 output by about a bf16 step).
+
+The gradients: K1's backward kernel is the plain formula bit for bit in both
+dtypes (every step rounds where the plain version rounds, and the launch
+forbids fused multiply-adds).  K2's Function launches the kernel forward
+and takes its gradients from the library (`double_conv3x3_backward`):
+The kernel's output differs from cuDNN's in the last bits, so a few outputs
+within 1e-6 of zero fall on the other side of the relu, and each adds or
+removes a whole term of every gradient.  So the backward formula is held to
+1e-4 of max-abs with the plain version's own output as its `y` (no flip
+possible), and the Function end to end to 2e-3 in the L2 norm and 5e-2 of
+max-abs entry by entry.
 """
 import pytest
 import torch
 
-from uncltmo_tpu_torch.ops.kernels.concat_skip import (concat_skip_plain,
-                                                       fused_concat_skip)
-from uncltmo_tpu_torch.ops.kernels.double_conv import (double_conv3x3_plain,
-                                                       fused_double_conv3x3)
+from uncltmo_tpu_torch.ops.kernels.concat_skip import (
+    concat_skip_backward_plain, concat_skip_plain, fused_concat_skip,
+    fused_concat_skip_backward)
+from uncltmo_tpu_torch.ops.kernels.double_conv import (
+    double_conv3x3_backward, double_conv3x3_plain, fused_double_conv3x3)
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +137,91 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                              w1.double(), b1, w2, b2)
     with pytest.raises(ValueError):            # shape mismatch
         fused_concat_skip(x, x[:, :2])
+
+
+def _post_relu(shape, g, dtype):
+    """A skip as the encoder makes it: non-negative, many exact zeros."""
+    x = torch.randn(shape, generator=g, device="cuda")
+    return torch.relu(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 16, 59, 40), (16, 64, 122, 122),
+                                   (1, 5, 7, 3)],
+                         ids=["ragged", "train_b16", "tiny"])
+def test_k1_backward_kernel_matches_plain(cuda_device, dtype, shape):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x2 = _post_relu(shape, g, dtype)
+    b, c, h, w = shape
+    gout = torch.randn((b, 4 * c, h, w), generator=g, device="cuda").to(dtype)
+    n = fused_concat_skip.backward_launches
+    dx2, dx1 = fused_concat_skip_backward(x2, gout)
+    torch.cuda.synchronize()
+    assert fused_concat_skip.backward_launches == n + 1
+    ref2, ref1 = concat_skip_backward_plain(x2, gout)
+    assert torch.equal(dx2, ref2) and torch.equal(dx1, ref1)
+    # a gradient that arrives non-contiguous
+    strided = gout.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    dx2, _ = fused_concat_skip_backward(x2, strided)
+    assert torch.equal(dx2, ref2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_function_differentiates_through_the_kernels(cuda_device, dtype):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x2 = _post_relu((2, 8, 30, 31), g, dtype).requires_grad_()
+    x1 = torch.randn((2, 8, 30, 31), generator=g,
+                     device="cuda").to(dtype).requires_grad_()
+    gout = torch.randn((2, 32, 30, 31), generator=g, device="cuda").to(dtype)
+    n = (fused_concat_skip.launches, fused_concat_skip.backward_launches)
+    out = fused_concat_skip(x2, x1)
+    assert out.grad_fn is not None
+    out.backward(gout)
+    assert (fused_concat_skip.launches,
+            fused_concat_skip.backward_launches) == (n[0] + 1, n[1] + 1)
+    ref2, ref1 = concat_skip_backward_plain(x2.detach(), gout)
+    assert torch.equal(x2.grad, ref2) and torch.equal(x1.grad, ref1)
+    with pytest.raises(ValueError):            # gradient of another shape
+        fused_concat_skip_backward(x2.detach(), gout[:, :8])
+
+
+@pytest.mark.parametrize("b,cin,c1,c2,h,w",
+                         [(16, 1, 32, 32, 256, 256),
+                          (16, 32, 64, 64, 126, 126),
+                          (16, 64, 128, 128, 61, 61),
+                          (16, 128, 256, 256, 28, 28), (2, 3, 5, 7, 9, 11)],
+                         ids=["inc", "down0", "down1", "down2", "ragged"])
+def test_k2_function_matches_autograd_of_plain(cuda_device, b, cin, c1, c2,
+                                               h, w):
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    args = [torch.rand((b, cin, h, w), generator=g, device="cuda"),
+            rnd(c1, cin, 3, 3, std=(2 / (9 * cin)) ** 0.5), rnd(c1, std=0.1),
+            rnd(c2, c1, 3, 3, std=(2 / (9 * c1)) ** 0.5), rnd(c2, std=0.1)]
+    need_dx = cin > 1                      # `inc` reads the batch itself
+    leaves = [a.clone().requires_grad_(i > 0 or need_dx)
+              for i, a in enumerate(args)]
+    n = (fused_double_conv3x3.launches, fused_double_conv3x3.backward_calls)
+    y = fused_double_conv3x3(*leaves)
+    gy = torch.randn(y.shape, generator=g, device="cuda")
+    wanted = [t for t in leaves if t.requires_grad]
+    got = torch.autograd.grad(y, wanted, gy)
+    assert (fused_double_conv3x3.launches,
+            fused_double_conv3x3.backward_calls) == (n[0] + 1, n[1] + 1)
+    ref_leaves = [a.clone().requires_grad_(i > 0 or need_dx)
+                  for i, a in enumerate(args)]
+    ref_y = double_conv3x3_plain(*ref_leaves)
+    ref = torch.autograd.grad(ref_y, [t for t in ref_leaves
+                                      if t.requires_grad], gy)
+    torch.testing.assert_close(y, ref_y, rtol=1e-4, atol=1e-4)
+    formula = double_conv3x3_backward(*args, ref_y.detach(), gy,
+                                      need_dx=need_dx)
+    for a, f, r in zip(got, [t for t in formula if t is not None], ref):
+        assert a.shape == r.shape
+        assert (f - r).abs().max() <= 1e-4 * r.abs().max()
+        assert (a - r).norm() <= 2e-3 * r.norm()
+        assert (a - r).abs().max() <= 5e-2 * r.abs().max()

@@ -93,7 +93,7 @@ def run_trained_model(args):
 
     if args.calc_lambda:
         raise NotImplementedError("--calc_lambda: lambda estimation is not "
-                                  "ported yet (ROADMAP Queue 1 item 6)")
+                                  "ported yet (ROADMAP Queue 1 item 3)")
     start = time.time()
     net_path = find_net_path(args.model_path, args.net_name)
     model_params = get_model_params(

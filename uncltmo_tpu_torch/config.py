@@ -1,5 +1,8 @@
-"""Inference-side model settings: `run_settings.npy` re-hydration
-(reference `utils/model_save_util.py:620-652`).  numpy only."""
+"""Model settings: `run_settings.npy` re-hydration for inference
+(reference `utils/model_save_util.py:620-652`) and the options that build
+the generator and the discriminator, under the reference's flag names and
+with the JAX package's defaults (`uncltmo_tpu/config.py:22-73`).  numpy
+only."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +21,8 @@ _MODEL_PARAM_KEYS = (
 
 @dataclasses.dataclass
 class Options:
-    """The generator-building subset of the training options."""
+    """The subset of the training options that `make_generator` and
+    `make_discriminator` read."""
     input_dim: int = 1
     output_dim: int = 1
     last_layer: str = "sigmoid"
@@ -34,6 +38,13 @@ class Options:
     stretch_g: str = "none"
     add_frame: int = 0
     convtranspose_kernel: int = 2
+    # discriminator
+    d_model: str = "simpleD"
+    d_down_dim: int = 16
+    d_norm: str = "none"
+    d_last_activation: str = "none"
+    simpleD_maxpool: int = 0
+    d_padding: int = 0
 
 
 def get_model_params(model_name: str, train_settings_path: str = "none"

@@ -25,7 +25,7 @@ JAX engine exactly:
   scene).
 
 The JAX engine's `mesh=` sharding of the tile batch is not ported
-(multi-card work is ROADMAP Queue 1 item 5), nor is `run_images`'
+(multi-card work is ROADMAP Queue 1 item 1), nor is `run_images`'
 `post_name` contract, which keys a compile cache that eager PyTorch does
 not have.
 """

@@ -11,7 +11,11 @@ Numerics as in the JAX package:
   buffer regenerated from geometry, not a learned parameter);
 * max-relative aggregation, then the channel interleave `[x, rel]`
   (`gcn.py:166`) before the groups=4 1x1 conv;
-* exact-erf GELU.
+* exact-erf GELU;
+* drop path (per-sample stochastic depth, rate 0.05) on the Grapher's and
+  the FFN's residual branches when a forward is not `deterministic`
+  (`gcn.py:120-128`, `:170`, `:178`): two draws per block call, from an
+  explicit `torch.Generator`, or from the caller's own masks.
 `topk` may order tied neighbours differently from `lax.top_k`; the max over
 neighbours only sees which set is chosen.
 
@@ -78,6 +82,30 @@ def dense_knn(nodes: torch.Tensor, k: int, rel_pos: torch.Tensor
         return torch.topk(-dist, min(k, dist.shape[-1]), dim=-1).indices
 
 
+def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
+              generator: torch.Generator | None = None,
+              masks=None) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath): x * mask / keep with one
+    Bernoulli(keep) draw per sample.  The draw comes from `generator` (on
+    the generator's device, then moved to x's), or, when `masks` is given,
+    is the next item of that iterator: a (B,) tensor of zeros and ones, so
+    that a caller can replay fixed masks."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    b = x.shape[0]
+    if masks is not None:
+        mask = next(masks)
+    else:
+        if generator is None:
+            raise ValueError("drop_path: a training forward needs a "
+                             "torch.Generator (or masks)")
+        mask = torch.rand(b, generator=generator,
+                          device=generator.device) < keep
+    mask = mask.to(device=x.device, dtype=x.dtype)
+    return x * mask.reshape(b, 1, 1, 1) / keep
+
+
 def _conv1x1(in_ch: int, out_ch: int, groups: int = 1) -> nn.Sequential:
     """Conv2d 1x1 wrapped as the reference's `Seq(Conv2d, ...)` (`.0`)."""
     return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, groups=groups))
@@ -99,9 +127,11 @@ class Grapher(nn.Module):
     """Grapher_noBN (`gcn_lib/torch_vertex.py:181-227`): fc1, max-relative
     graph conv, GELU, fc2, residual."""
 
-    def __init__(self, ch: int, grid: int, k: int = 9):
+    def __init__(self, ch: int, grid: int, k: int = 9,
+                 drop_path_rate: float = 0.05):
         super().__init__()
         self.k = k
+        self.drop_path_rate = drop_path_rate
         self.fc1 = _conv1x1(ch, ch)
         self.graph_conv = _MRConv(ch)
         self.fc2 = _conv1x1(2 * ch, ch)
@@ -129,7 +159,8 @@ class Grapher(nn.Module):
             self._regenerated = (key, table)
         return self._regenerated[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None, drop_masks=None) -> torch.Tensor:
         b, c, h, w = x.shape
         n = h * w
         shortcut = x
@@ -144,36 +175,46 @@ class Grapher(nn.Module):
         # channel interleave [x, rel] -> 2C (`torch_vertex.py:28-29`)
         mr = torch.stack([nodes, rel], dim=2).reshape(b, 2 * c, h, w)
         mr = F.gelu(self.graph_conv.gconv.nn(mr))
-        return self.fc2(mr) + shortcut
+        return drop_path(self.fc2(mr), self.drop_path_rate, deterministic,
+                         generator, drop_masks) + shortcut
 
 
 class FFN(nn.Module):
     """`Unet.py:20-42`: fc1, GELU, fc2, residual."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, drop_path_rate: float = 0.05):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.fc1 = _conv1x1(ch, ch)
         self.fc2 = _conv1x1(ch, ch)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x))) + x
+    def forward(self, x, deterministic: bool = True, generator=None,
+                drop_masks=None):
+        y = self.fc2(F.gelu(self.fc1(x)))
+        return drop_path(y, self.drop_path_rate, deterministic, generator,
+                         drop_masks) + x
 
 
 class GCNBlock(nn.Module):
-    """pos_embed add + Grapher + FFN (reference `Unet.py:44-99`).  Drop-path
-    is inference-off, so the forward is deterministic."""
+    """pos_embed add + Grapher + FFN (reference `Unet.py:44-99`).  With
+    `deterministic=False` (a training forward) both residual branches go
+    through `drop_path`: first the Grapher's draw, then the FFN's."""
 
-    def __init__(self, ch: int, grid: int = 12, k: int = 9):
+    def __init__(self, ch: int, grid: int = 12, k: int = 9,
+                 drop_path_rate: float = 0.05):
         super().__init__()
         self.grid = grid
         self.pos_embed = nn.Parameter(torch.zeros(1, ch, grid, grid))
-        self.module = nn.Sequential(nn.Sequential(Grapher(ch, grid, k),
-                                                  FFN(ch)))
+        self.module = nn.Sequential(nn.Sequential(
+            Grapher(ch, grid, k, drop_path_rate), FFN(ch, drop_path_rate)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None, drop_masks=None) -> torch.Tensor:
         pos = self.pos_embed
         if tuple(x.shape[2:]) != (self.grid, self.grid):
             # the reference adds the fixed grid by broadcast and fails on
             # any other bottleneck; the JAX package resizes the embedding
             pos = bicubic_resize(pos.to(x.dtype), x.shape[2], x.shape[3])
-        return self.module(x + pos)
+        grapher, ffn = self.module[0]
+        x = grapher(x + pos, deterministic, generator, drop_masks)
+        return ffn(x, deterministic, generator, drop_masks)

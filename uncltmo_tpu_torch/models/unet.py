@@ -22,9 +22,15 @@ at eight positions (after inc, down0..2, the GCN and up0..2: 1, 2, 4, 8, 8,
 4, 2, 1 channels at 32 filters); at frame k > 0 the first 1/32 channels of
 what the next layer reads are replaced by the previous frame's slice
 (reference `Unet.py:229-272`).  The skips stay unspliced.  `video_apply`
-loops `frame` over a (B, T, C, H, W) clip.  Batch-norm statistics and
-drop-path randomness across frames are training matters and wait for the
-training slice (ROADMAP Queue 1 item 5).
+loops `frame` over a (B, T, C, H, W) clip.
+
+A training forward is `deterministic=False`: the GCN's drop path is live
+and draws from the caller's `torch.Generator`, fresh for every frame of a
+clip (`uncltmo_tpu/models/unet.py:259-267`), and under autograd `_splice`
+builds new tensors, so the gradient flows through the carry.  Batch-norm
+statistics are not ported: the published configurations have no norm and
+the blocks raise for any other (`stats_G` of the JAX training state has no
+counterpart here).
 """
 from __future__ import annotations
 
@@ -104,11 +110,14 @@ class UNetTMO(nn.Module):
         self.up_path = nn.ModuleList(ups)
         self.outc = blocks.OutConv(ch, output_dim)
 
-    def frame(self, x: torch.Tensor, carry: Carry = None
+    def frame(self, x: torch.Tensor, carry: Carry = None,
+              deterministic: bool = True, generator=None, drop_masks=None
               ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
         """Single-frame forward (`unet.py:120-168`).  carry: the previous
-        frame's eight slices, or None (first frame, image mode).  Returns
-        (x_out, up_x, new_carry)."""
+        frame's eight slices, or None (first frame, image mode).
+        `deterministic=False` turns the GCN's drop path on, drawn from
+        `generator` (or taken from the iterator `drop_masks`, see
+        `gcn.drop_path`).  Returns (x_out, up_x, new_carry)."""
         r = self.recurrent_ch_ratio
         next_x = self.inc(x)
         skips = [next_x]
@@ -126,7 +135,8 @@ class UNetTMO(nn.Module):
             skips.append(next_x)
             if i < self.depth - 1:
                 new_carry.append(_rec_slice(next_x, r))
-        up_x = self.gcn(skips[self.depth])
+        up_x = self.gcn(skips[self.depth], deterministic, generator,
+                        drop_masks)
         new_carry.append(_rec_slice(up_x, r))
         for i, layer in enumerate(self.up_path):
             if carry is not None:
@@ -145,12 +155,15 @@ class UNetTMO(nn.Module):
         return x_out, up_x, new_carry
 
     def forward(self, x: torch.Tensor, apply_crop: bool = False,
-                diffY: int = 0, diffX: int = 0
+                diffY: int = 0, diffX: int = 0, deterministic: bool = True,
+                generator=None, drop_masks=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Image-mode forward (reference `Unet_singleFrame.py:177-213`).
         apply_crop / diffY / diffX: the add_frame output crop, active only
-        in a module built with `to_crop`."""
-        out, up_x, _ = self.frame(x)
+        in a module built with `to_crop`.  deterministic / generator /
+        drop_masks: as `frame`."""
+        out, up_x, _ = self.frame(x, None, deterministic, generator,
+                                  drop_masks)
         if apply_crop and self.to_crop and (diffY or diffX):
             out = crop_center_batch(out, diffY, diffX)
         return out, up_x
@@ -164,18 +177,24 @@ class UNetTMO(nn.Module):
 
 
 def video_apply(model: UNetTMO, x_btchw: torch.Tensor,
-                with_features: bool = True
+                with_features: bool = True, deterministic: bool = True,
+                generator=None, drop_masks=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, T, C, H, W) -> ((B, T, 1, H, W) outputs, (B, T, 2F) features):
     the reference's frame loop (`Unet.py:218-286`).  Frame 0 builds the
     carry, every later frame reads the one before it.  `with_features`
     toggles the contrastive feature head (an 11x11 depthwise conv per
     frame that tiled inference does not need); without it the features are
-    (B, T, 0)."""
+    (B, T, 0).  With `deterministic=False` every frame draws its own drop
+    path masks from `generator` (or takes the next two of `drop_masks`)."""
     carry = None
     outs, feats = [], []
+    # a serving forward calls `frame(x, carry)` alone, so that any module
+    # with that signature can stand in for the generator
+    train = {} if deterministic else dict(
+        deterministic=False, generator=generator, drop_masks=drop_masks)
     for k in range(x_btchw.shape[1]):
-        out, up_x, carry = model.frame(x_btchw[:, k], carry)
+        out, up_x, carry = model.frame(x_btchw[:, k], carry, **train)
         outs.append(out)
         feats.append(model.feature_head(up_x) if with_features
                      else out.new_zeros((out.shape[0], 0)))
@@ -184,14 +203,16 @@ def video_apply(model: UNetTMO, x_btchw: torch.Tensor,
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """The reference's initialisation (`utils/model_save_util.py:41-47`):
-    xavier-normal with gain sqrt(2) on every conv weight, zero biases,
-    zero pos_embed; drawn from an explicit `torch.Generator`."""
+    xavier-normal with gain sqrt(2) on every conv weight (and on the
+    discriminator's linear head, as the JAX package initialises it), zero
+    biases, zero pos_embed; drawn from an explicit `torch.Generator`."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 nn.init.xavier_normal_(m.weight, gain=2 ** 0.5, generator=g)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, GCNBlock):
                 nn.init.zeros_(m.pos_embed)
     return model
@@ -232,7 +253,7 @@ def make_generator(opt=None, **overrides) -> UNetTMO:
         if not opt.g_doubleConvTranspose or opt.up_mode or opt.bilinear:
             raise NotImplementedError(
                 "only the published doubleConvTranspose / 2x2-ConvT "
-                "generator is ported (ROADMAP Queue 1 item 4)")
+                "generator is ported (ROADMAP Queue 1 item 2)")
         kw = dict(
             n_channels=opt.input_dim, output_dim=opt.output_dim,
             last_layer=opt.last_layer, depth=opt.unet_depth,

@@ -7,7 +7,12 @@ bounds them on Hopper and how the design answers that); this module holds
 the plain PyTorch version, the weight packing and the ctypes wrapper.
 
 Dispatch is by the tensor's device alone: CPU tensors take the plain
-version, CUDA tensors launch the kernel (a failed build or launch raises).
+version (differentiated by autograd), CUDA tensors go through
+`_DoubleConv3x3`, whose forward launches the kernel (a failed build or
+launch raises) whether or not a gradient is wanted.  The TPU kernel has no
+VJP and the JAX training step never reaches it, so the gradient is no port
+of a kernel: `double_conv3x3_backward` recomputes the intermediate with
+`F.conv2d` and calls the library's convolution gradients.
 The TPU kernel's `W*Cin % 128 == 0` rule is a Mosaic DMA constraint and
 does not apply here: any H, W >= 5 and any channel counts are accepted.
 
@@ -91,6 +96,27 @@ def double_conv3x3_plain(x, w1, b1, w2, b2):
     return F.relu(F.conv2d(mid, w2, b2))
 
 
+def double_conv3x3_backward(x, w1, b1, w2, b2, y, gy, need_dx: bool = True):
+    """Gradients of `double_conv3x3_plain` at (x, w1, b1, w2, b2) for the
+    output gradient gy, given the forward's output y: (dx, dw1, db1, dw2,
+    db2), dx None unless `need_dx`.
+
+    The intermediate `relu(conv(x, w1) + b1)` is recomputed (the fused
+    forward never writes it).  The second relu's mask comes from the saved
+    y, not from a recomputed output: the kernel's sums differ from the
+    library's in the last bits, and an entry near zero could otherwise
+    fall on the other side of the relu than it did in the forward."""
+    mid = F.relu(F.conv2d(x, w1, b1))
+    gz2 = gy * (y > 0)
+    dw2 = torch.nn.grad.conv2d_weight(mid, w2.shape, gz2)
+    db2 = gz2.sum(dim=(0, 2, 3))
+    gz1 = torch.nn.grad.conv2d_input(mid.shape, w2, gz2) * (mid > 0)
+    dw1 = torch.nn.grad.conv2d_weight(x, w1.shape, gz1)
+    db1 = gz1.sum(dim=(0, 2, 3))
+    dx = torch.nn.grad.conv2d_input(x.shape, w1, gz1) if need_dx else None
+    return dx, dw1, db1, dw2, db2
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     fn = lib.uncltmo_double_conv3x3
@@ -111,9 +137,10 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     (C2, C1, 3, 3), biases (C1,), (C2,).
 
     The plain version on a CPU tensor; the CUDA kernel on a CUDA tensor
-    (counted in `fused_double_conv3x3.launches`).  `packed` is
-    `pack_double_conv_weights` of the same four tensors; without it the
-    weights are packed in this call."""
+    (counted in `fused_double_conv3x3.launches`), differentiable through
+    `double_conv3x3_backward` (`fused_double_conv3x3.backward_calls`).
+    `packed` is `pack_double_conv_weights` of the same four tensors; without
+    it the weights are packed in this call."""
     if x.device.type == "cpu":
         return double_conv3x3_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -134,8 +161,14 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if h < 5 or w < 5 or not 1 <= b <= 65535:
         raise ValueError(f"fused_double_conv3x3: unsupported input shape "
                          f"{tuple(x.shape)}")
+    return _DoubleConv3x3.apply(x, w1, b1, w2, b2, packed)
+
+
+def _launch(x, w1, b1, w2, b2, packed):
     lib = _library()
     x = x.contiguous()
+    b, cin, h, w = x.shape
+    c1, c2 = w1.shape[0], w2.shape[0]
     if packed is None:
         packed = pack_double_conv_weights(w1, b1, w2, b2)
     y = torch.empty((b, c2, h - 4, w - 4), dtype=x.dtype, device=x.device)
@@ -151,4 +184,25 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return y
 
 
+class _DoubleConv3x3(torch.autograd.Function):
+    """K2 on CUDA tensors: the forward is the kernel; the backward is
+    `double_conv3x3_backward` (library calls, see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, packed):
+        y = _launch(x, w1, b1, w2, b2, packed)
+        ctx.save_for_backward(x, w1, b1, w2, b2, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w1, b1, w2, b2, y = ctx.saved_tensors
+        grads = double_conv3x3_backward(x, w1, b1, w2, b2, y, gy,
+                                        need_dx=ctx.needs_input_grad[0])
+        fused_double_conv3x3.backward_calls += 1
+        return (*grads, None)
+
+
 fused_double_conv3x3.launches = 0
+fused_double_conv3x3.backward_calls = 0

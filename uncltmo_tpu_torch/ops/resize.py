@@ -1,10 +1,14 @@
-"""Bicubic resize with torch `F.interpolate(mode='bicubic',
-align_corners=False)` semantics as two matrix products (port of
-`uncltmo_tpu/ops/resize.py:59-96`): the whole-image path's pad-removal
-downscale and the GCN's pos-embed resize.  The weight matrices are built in
-float64 on the host, exactly as the JAX package builds them, and cast to
-the input's dtype.  `bicubic_half` and `haar_half` are not ported yet
-(ROADMAP Queue 1 items 4 and 6).
+"""Bicubic resampling with torch `F.interpolate(mode='bicubic',
+align_corners=False)` semantics (port of `uncltmo_tpu/ops/resize.py`).
+
+`bicubic_resize` (`:59-96`) is two matrix products: the whole-image path's
+pad-removal downscale and the GCN's pos-embed resize.  The weight matrices
+are built in float64 on the host, exactly as the JAX package builds them,
+and cast to the input's dtype.  `bicubic_half` (`:21-44`) is the fixed 0.5x
+step between the levels of the structural loss's pyramid: at that scale the
+Keys kernel is the constant 4-tap filter [-3, 19, 19, -3] / 32 on
+edge-clamped taps, a separable stride-2 convolution.  `haar_half` (TMQI's
+pyramid) is not ported yet (ROADMAP Queue 1, metrics and tools).
 """
 from __future__ import annotations
 
@@ -12,6 +16,12 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from uncltmo_tpu_torch.ops.windows import _conv1d_valid
+
+# Keys cubic kernel (a = -0.75) at |x| = 1.5, 0.5, 0.5, 1.5
+_BICUBIC_HALF_TAPS = (-0.09375, 0.59375, 0.59375, -0.09375)
 
 
 def _keys_cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -57,3 +67,16 @@ def bicubic_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     ww = _bicubic_weights(x.shape[3], out_w, x.dtype, x.device)
     y = torch.einsum("oh,nchw->ncow", wh, x)
     return torch.einsum("ow,nchw->ncho", ww, y)
+
+
+def bicubic_half(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NCHW with H and W halved (floor).  Output pixel i reads taps
+    2i-1 .. 2i+2 clamped to the edge: one replicated sample before, and two
+    after an even size (none after an odd one, whose last tap is in range)."""
+    k = torch.tensor(_BICUBIC_HALF_TAPS, dtype=x.dtype, device=x.device)
+    pad_h = 2 if x.shape[2] % 2 == 0 else 0
+    pad_w = 2 if x.shape[3] % 2 == 0 else 0
+    x = _conv1d_valid(F.pad(x, (0, 0, 1, pad_h), mode="replicate"), k,
+                      axis=2, stride=2)
+    return _conv1d_valid(F.pad(x, (1, pad_w, 0, 0), mode="replicate"), k,
+                         axis=3, stride=2)

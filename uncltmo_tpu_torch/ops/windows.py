@@ -7,9 +7,10 @@ pool.
 Every window is an outer product of a 1-D kernel, so a window statistic is
 two depthwise valid 1-D convolutions (`F.conv2d` with `groups=C`).  With
 TF32 off these are full float32 products, the JAX package's
-`Precision.HIGHEST`.  The TMQI-only helpers (`window_mean_auto`,
-`moving_std_mean`, `block_std_mean`) are not ported yet (ROADMAP Queue 1
-item 6).
+`Precision.HIGHEST`.  `block_std_mean` (`:162-181`) serves the naturalness
+score of the contrastive losses.  The helpers that only the full TMQI needs
+(`window_mean_auto`, `moving_std_mean`) are not ported yet (ROADMAP Queue 1,
+metrics and tools).
 """
 from __future__ import annotations
 
@@ -87,3 +88,18 @@ def contrast_map(x: torch.Tensor, size: int = 11, sigma: float = 1.5
 def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:
     """Global average pool NCHW -> (N, C, 1, 1)."""
     return x.mean(dim=(2, 3), keepdim=True)
+
+
+def block_std_mean(x: torch.Tensor, block: int = 11) -> torch.Tensor:
+    """Mean of the population std of non-overlapping block x block tiles
+    (TMQI's naturalness term, reference `TMQI.py:219-229`).
+
+    x: (..., H, W) -> (...).  H and W are zero-padded by `block - dim %
+    block`, which appends a whole block of zeros when the size already
+    divides, as the reference does."""
+    h, w = x.shape[-2:]
+    x = F.pad(x, (0, block - w % block, 0, block - h % block))
+    hb, wb = x.shape[-2] // block, x.shape[-1] // block
+    v = x.reshape(*x.shape[:-2], hb, block, wb, block).transpose(-3, -2)
+    v = v.reshape(*x.shape[:-2], hb * wb, block * block)
+    return v.std(dim=-1, correction=0).mean(dim=-1)

@@ -4,6 +4,11 @@
 GCN_GRID = 12
 
 EPSILON = 1e-08   # reference `utils/params.py:48`
+EPSILON2 = 1e-05  # reference `utils/params.py:49`
+
+# Adam's first-moment decay of both optimizers (reference
+# `utils/params.py:61`).
+BETA1 = 0.5
 
 # The published skip-connection concat operator (reference
 # `utils/params.py:78-83`); the other five are not ported yet.

@@ -6,6 +6,12 @@
   `uncltmo_tpu/utils/export_torch.py`.
 * `load_generator`: a reference `.pth` checkpoint -> a `UNetTMO` loaded
   with `strict=True`.
+* `discriminator_state_dict_from_flax`: the flax `SimpleDiscriminator`
+  param tree -> the reference layout `model.0`, `model.2`, `model.4`,
+  `tail.1` (the port's copy of `export_torch.py:export_discriminator`).
+* `train_state_from_flax`: a whole JAX training state -- both param trees
+  and both Adam states -- into a `TrainState`, so that a run begun in the
+  JAX package continues in the port.
 
 A `.msgpack` training checkpoint of the JAX package needs flax to read; it
 reaches the port by way of `python cli/export_checkpoint.py --checkpoint
@@ -20,6 +26,7 @@ import torch
 
 from uncltmo_tpu_torch.models.gcn import relative_pos_bias
 from uncltmo_tpu_torch.models.unet import UNetTMO
+from uncltmo_tpu_torch.training.state import TrainState
 
 
 def _np(x) -> np.ndarray:
@@ -89,7 +96,7 @@ def state_dict_from_flax(params: Dict, depth: int = 4
 
     if has_norm(params):
         raise NotImplementedError("batch_norm generators are not ported yet "
-                                  "(ROADMAP Queue 1)")
+                                  "(ROADMAP Queue 1 item 2)")
     sd: Dict[str, np.ndarray] = {}
     _conv(params["inc"]["conv0"]["Conv_0"], sd, "inc.conv.conv")
     _conv(params["inc"]["conv1"]["Conv_0"], sd, "inc.conv.conv1")
@@ -111,6 +118,56 @@ def state_dict_from_flax(params: Dict, depth: int = 4
                 base + ".conv.conv1")
     _conv(params["outc"]["Conv_0"], sd, "outc.conv")
     return sd
+
+
+def discriminator_state_dict_from_flax(params: Dict) -> Dict[str, np.ndarray]:
+    """Flax `SimpleDiscriminator` params (numpy leaves) -> the port's / the
+    reference state dict (numpy values)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(params["conv0"], sd, "model.0")
+    _conv(params["conv1"], sd, "model.2")
+    if "conv2" in params:
+        _conv(params["conv2"], sd, "model.4")
+    sd["tail.1.weight"] = _np(params["tail"]["kernel"]).T.copy()
+    return sd
+
+
+def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam,
+               to_state_dict) -> None:
+    """optax `ScaleByAdamState(count, mu, nu)` -> the optimizer's per-
+    parameter `step`, `exp_avg`, `exp_avg_sq`.  The moment trees have the
+    parameters' structure and the layout change is a permutation, so they
+    cross over through the same converter as the parameters."""
+    mu, nu = to_state_dict(adam.mu), to_state_dict(adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": torch.tensor(mu[name]).to(p.device),
+            "exp_avg_sq": torch.tensor(nu[name]).to(p.device)}
+
+
+def train_state_from_flax(state, gen: UNetTMO,
+                          disc: torch.nn.Module) -> TrainState:
+    """The JAX package's `TrainState` (`params_G`, `params_D`,
+    `opt_state_G`, `opt_state_D`, `step`; leaves readable by `np.asarray`)
+    loaded into `gen` and `disc` where they lie, with both Adam states.
+    Norm-free models only (`stats_G` must be empty)."""
+    if getattr(state, "stats_G", None):
+        raise NotImplementedError("batch_norm generators are not ported yet "
+                                  "(ROADMAP Queue 1 item 2)")
+
+    def to_g(tree):
+        return state_dict_from_flax(tree, gen.depth)
+
+    load_state(gen, to_g(state.params_G))
+    load_state(disc, discriminator_state_dict_from_flax(state.params_D))
+    out = TrainState.create(gen, disc)
+    _load_adam(out.opt_G, gen, state.opt_state_G, to_g)
+    _load_adam(out.opt_D, disc, state.opt_state_D,
+               discriminator_state_dict_from_flax)
+    out.step = int(np.asarray(state.step))
+    return out
 
 
 def load_state(model: torch.nn.Module, sd: Dict) -> torch.nn.Module:
