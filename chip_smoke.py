@@ -9,7 +9,8 @@ filters, weights drawn from a seed) at 1080p -- tiled image tone mapping
 recurrence (`run_on_video_path`, `scene_batch` 1 and 2) and whole-image
 inference (`InferenceRunner(whole_image=True)`) -- and the GAN training step
 (`training.train_step.make_train_step`) for the image and the video
-generator at the published batch of 8 x 2 frames of 256 x 256, and holds
+generator at the published batch of 8 x 2 frames of 256 x 256, and the
+training loop around it (`training.trainer.GanTrainer`), and holds
 each hand-written kernel against its plain PyTorch version on the card.
 One JSON line per phase:
 
@@ -43,13 +44,21 @@ One JSON line per phase:
     four training shapes, f32 with TF32 off: B = 16 (forward and backward
     timed) and B = 8;
 12. train: for the image and the video generator, two D pre-train steps,
-    three stage-0 steps, two stage-1 and two stage-2 steps in float32:
+    three stage-0 steps, one stage-1 and one stage-2 step in float32:
     finite logs, a gradient and a changed value for every parameter, the
     kernels' launch counts, step ms per stage, peak memory, a profile of a
     stage-0 step; train_reference: a 112 x 112 step on the card against
     the same step on the CPU, at the published epsilon of the skip concat
     and at 1e-2;
-13. the kernels line (launches summed over all paths; K2 under autograd
+13. trainer: `training.trainer.GanTrainer` at the same batch on synthetic
+    data, one D pre-train epoch and one main epoch of 20 steps, image and
+    video generator: steps/s beside the bare step's ms, the loop's
+    wait/dispatch/log/summary seconds, launch counts (20 x a step's, none
+    while D pre-trains, plus one generator forward for each 1/4-epoch
+    sample grid), peak memory; the newest checkpoint reloaded into a fresh
+    trainer bit for bit and served by `InferenceRunner` from its .pth on a
+    small image (`summary_control`, not run here, times the summaries);
+14. the kernels line (launches summed over all paths; K2 under autograd
     is an entry of its own), the nvidia-smi line, and `{"ok": true, ...}`
     last.
 
@@ -96,6 +105,7 @@ VIDEO_FRAMES = 4              # frames of a scene (the published scenes: 6)
 VIDEO_BATCH = 120             # tiles of two 1080p scenes in one frame step
 TRAIN_BATCH = (8, 2, 256)      # samples, frames a sample, frame size
 TRAIN_FRAMES = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+TRAINER_ITEMS = 160            # samples of the trainer phase's epochs
 # the batches the training step gives the kernels: all 16 frames at once
 # (image generator) and one frame of every sample (video generator)
 TRAIN_KERNEL_BATCHES = (TRAIN_FRAMES, TRAIN_BATCH[0])
@@ -1030,30 +1040,48 @@ def snapshot(state) -> dict:
                   for n, p in state.gen.named_parameters()}}
 
 
+# one forward of either generator (a sample grid, B = 2): K1 in the four Up
+# blocks, K2 in `inc` and `down0..2`
+GRID_FORWARD = {"fused_concat_skip": 4, "fused_double_conv3x3": 4}
+
+
+def train_per_step(video: bool) -> dict:
+    """Kernel launches of one full training step (none in a D pre-train
+    step): K1 and K2 in each of the two generator forwards, K1's gradient
+    and K2's library gradient in the backward; twice over for the video
+    generator's two frame steps."""
+    n = 2 if video else 1
+    return {"fused_concat_skip": 8 * n, "fused_concat_skip_backward": 4 * n,
+            "fused_double_conv3x3": 8 * n,
+            "fused_double_conv3x3_backward_calls": 4 * n}
+
+
 def phase_train(torch, seed):
     """A few steps of the GAN training step at full width for the image
-    and the video generator; returns the kernels' launch counts."""
+    and the video generator; returns the kernels' launch counts and the
+    step ms by stage of each generator."""
     import numpy as np
     b, _, size = TRAIN_BATCH
     g_lr, d_lr = 1e-5, 1.5e-5          # scripts/run_imageTMO_train.sh
+    # one warm step per stage (two at stage 0); the first pre-train and the
+    # first stage-0 step warm up; the trainer phase gives the steady
+    # stage-0 time over 20 steps
     plan = [("pretrain", 0, True), ("pretrain", 0, True), ("stage0", 0, False),
             ("stage0", 0, False), ("stage0", 0, False), ("stage1", 1, False),
-            ("stage1", 1, False), ("stage2", 2, False), ("stage2", 2, False)]
-    total = {}
+            ("stage2", 2, False)]
+    warmups = (0, 2)
+    total, stage_ms = {}, {}
     for video in (False, True):
         path = "video" if video else "image"
         rng = np.random.default_rng(seed + 10 + int(video))
         step, state = build_trainer(torch, seed, video, "cuda", size=size)
         generator = torch.Generator(device="cuda").manual_seed(seed)
         batches = [synthetic_batch(rng, b, size) for _ in range(3)]
-        per_step = {"fused_concat_skip": 16 if video else 8,
-                    "fused_concat_skip_backward": 8 if video else 4,
-                    "fused_double_conv3x3": 16 if video else 8,
-                    "fused_double_conv3x3_backward_calls": 8 if video else 4}
+        per_step = train_per_step(video)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_train_counts()
-        ms, seen, last_logs = {}, {}, {}
+        ms, last_logs = {}, {}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         for i, (tag, stage, pretrain) in enumerate(plan):
@@ -1071,9 +1099,8 @@ def phase_train(torch, seed):
             if got != want:
                 raise AssertionError(f"train {path} {tag}: launches {got}, "
                                      f"expected {want}")
-            if tag in seen:                  # the first of a kind warms up
+            if i not in warmups:
                 ms.setdefault(tag, []).append(start.elapsed_time(end))
-            seen[tag] = True
             last_logs[tag] = {k: float(v) for k, v in logs.items()}
         counts = train_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1096,9 +1123,10 @@ def phase_train(torch, seed):
              state_step=state.step, logs=last_logs)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+        stage_ms[path] = {k: sum(v) / len(v) for k, v in ms.items()}
         del step, state, batches
         torch.cuda.empty_cache()
-    return total
+    return total, stage_ms
 
 
 def phase_train_reference(torch):
@@ -1192,6 +1220,202 @@ def phase_train_reference(torch):
                     f"differs by {encoder_l2} in relative L2")
 
 
+def trainer_options(out_dir: str, seed: int):
+    """The published training options (`scripts/run_imageTMO_train.sh`)
+    at batch 8, with one D pre-train epoch and one main epoch."""
+    from uncltmo_tpu_torch.config import (Options, create_output_dirs,
+                                          save_run_settings)
+    opt = Options(batch_size=TRAIN_BATCH[0], num_epochs=1,
+                  d_pretrain_epochs=1, G_lr=1e-5, D_lr=1.5e-5,
+                  lr_decay_step=50, loss_g_d_factor=0.1,
+                  pyramid_weight_list="0.2,0.4,0.6", adv_weight_list="1,1,0",
+                  manual_seed=seed + 999, result_dir_prefix=out_dir,
+                  output_dir=out_dir)
+    create_output_dirs(out_dir)
+    save_run_settings(opt, out_dir)
+    return opt
+
+
+def same_state(torch, a, b) -> bool:
+    """Parameters and both Adam states bit for bit."""
+    for ma, mb in ((a.gen, b.gen), (a.disc, b.disc)):
+        for (na, pa), (nb, pb) in zip(ma.named_parameters(),
+                                      mb.named_parameters()):
+            if na != nb or not torch.equal(pa, pb):
+                return False
+    for oa, ob in ((a.opt_G, b.opt_G), (a.opt_D, b.opt_D)):
+        sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+        if sa.keys() != sb.keys():
+            return False
+        for i in sa:
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(sa[i][k].cpu(), sb[i][k].cpu()):
+                    return False
+    return a.step == b.step
+
+
+def trainer_want(video: bool, steps: int) -> dict:
+    """Kernel launches of a main epoch of `steps` steps: each step's, and
+    one forward of the generator (B = 2, on the host worker) for each
+    1/4-epoch sample grid."""
+    grids = steps // max(steps // 4, 1)
+    return {k: steps * v + (grids * GRID_FORWARD.get(k, 0))
+            for k, v in train_per_step(video).items()}
+
+
+def summary_control(torch, seed, rounds: int = 2) -> dict:
+    """What the 1/4-epoch summaries cost: 20-step main epochs of the image
+    G's trainer with and without them, alternated `rounds` times in one
+    process after a warm epoch.  Not run by `main`; alone:
+
+        python3 -c 'import chip_smoke as s, torch; s.phase_first_launches(
+            torch); s.summary_control(torch, 0)'
+    """
+    from uncltmo_tpu_torch.data.pipeline import SyntheticDataSource
+    from uncltmo_tpu_torch.training.trainer import GanTrainer
+    steps = TRAINER_ITEMS // TRAIN_BATCH[0]
+    ms = {"with": [], "without": []}
+    timings = {"with": [], "without": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = GanTrainer(
+            trainer_options(os.path.join(tmp, "run"), seed), source=(
+                SyntheticDataSource(size=TRAIN_BATCH[2],
+                                    n_items=TRAINER_ITEMS)), device="cuda")
+        summary = trainer.print_epoch_summary
+        for kind in ["with"] + ["with", "without"] * rounds:
+            trainer.print_epoch_summary = (summary if kind == "with"
+                                           else lambda *a: None)
+            reset_train_counts()
+            t0 = time.perf_counter()
+            trainer.train_epoch(0)
+            trainer._ckpt_saver.wait()
+            trainer._host_worker.wait()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            want = (trainer_want(False, steps) if kind == "with" else
+                    {k: steps * v for k, v in train_per_step(False).items()})
+            if train_counts() != want:
+                raise AssertionError(f"summary control: launches "
+                                     f"{train_counts()}, expected {want}")
+            ms[kind].append(wall)
+            timings[kind].append(dict(trainer.last_epoch_timings))
+    ms["with"] = ms["with"][1:]         # the first epoch warms up
+    timings["with"] = timings["with"][1:]
+    rec = {"generator": "image", "steps": steps, "ms_per_step": ms,
+           "timings": timings,
+           "summary_share": 1 - sum(ms["without"]) / sum(ms["with"])}
+    emit("summary_control", **rec)
+    return rec
+
+
+def phase_trainer(torch, seed, bare_ms):
+    """`GanTrainer` at the published batch (8 x 2 frames of 256 x 256,
+    float32) on `SyntheticDataSource(size=256, n_items=160)`: one D
+    pre-train epoch and one main epoch of 20 steps each, for the image and
+    the video generator.  The kernels' launch counts of the main epoch are
+    20 x a step's plus the four sample grids' forwards (`trainer_want`),
+    and 0 in the pre-train epoch; the newest checkpoint loads
+    into a fresh trainer bit for bit; `InferenceRunner` serves it on a
+    small image.  Returns the launch counts."""
+    import numpy as np
+    from uncltmo_tpu_torch.config import get_model_params
+    from uncltmo_tpu_torch.data.pipeline import SyntheticDataSource
+    from uncltmo_tpu_torch.inference.runner import InferenceRunner
+    from uncltmo_tpu_torch.training.trainer import GanTrainer
+    from uncltmo_tpu_torch.utils import checkpoint as ckpt
+    from uncltmo_tpu_torch.utils.io import read_png, write_radiance_hdr
+    size, n_items = TRAIN_BATCH[2], TRAINER_ITEMS
+    steps = n_items // TRAIN_BATCH[0]
+    total = {}
+    for video in (False, True):
+        path = "video" if video else "image"
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "run")
+            opt = trainer_options(out, seed)
+
+            def make():
+                return GanTrainer(opt, video=video, source=SyntheticDataSource(
+                    size=size, n_items=n_items), device="cuda")
+
+            t0 = time.perf_counter()
+            trainer = make()
+            init_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_train_counts()
+            t0 = time.perf_counter()
+            trainer.train_epoch(0, pretrain=True)
+            torch.cuda.synchronize()
+            pretrain_s = time.perf_counter() - t0
+            pretrain_timings = dict(trainer.last_epoch_timings)
+            pretrain_counts = train_counts()
+            trainer.num_iter = 0               # as `GanTrainer.train` does
+            reset_train_counts()
+            t0 = time.perf_counter()
+            trainer.train_epoch(0)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            timings = dict(trainer.last_epoch_timings)
+            t0 = time.perf_counter()
+            trainer._ckpt_saver.wait()
+            trainer._host_worker.wait()
+            torch.cuda.synchronize()
+            drain_s = time.perf_counter() - t0
+            # read once the host worker has run the last sample grid
+            counts = train_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = trainer_want(video, steps)
+            if counts != want or any(pretrain_counts.values()):
+                raise AssertionError(
+                    f"trainer {path}: launches {counts} (expected {want}), "
+                    f"pre-train epoch {pretrain_counts} (expected none)")
+            if timings["steps"] != steps or trainer.state.step != 2 * steps:
+                raise AssertionError(f"trainer {path}: {timings['steps']} "
+                                     f"steps, state step {trainer.state.step}")
+            # the newest checkpoint into a fresh trainer, bit for bit
+            newest = ckpt.latest_checkpoint(os.path.join(out, "models"))
+            fresh = make()
+            fresh.load_checkpoint()
+            reloaded = same_state(torch, fresh.state, trainer.state)
+            if not reloaded or fresh.num_iter != steps:
+                raise AssertionError(f"trainer {path}: {newest} does not "
+                                     "reload to the live state")
+            # ... and served from its .pth by the inference runner
+            rng = np.random.default_rng(seed + 40)
+            img_dir = os.path.join(tmp, "in")
+            os.makedirs(img_dir)
+            write_radiance_hdr(os.path.join(img_dir, "small.hdr"),
+                               synthetic_hdr(rng, *SMALL_HW))
+            lam = os.path.join(tmp, "lambdas.npy")
+            np.save(lam, {"small": 40.0})
+            runner = InferenceRunner(
+                get_model_params("trainer", os.path.join(out,
+                                                         "run_settings.npy")),
+                net_path=newest, device="cuda")
+            pngs = runner.run_on_path(img_dir, os.path.join(tmp, "out"), lam,
+                                      scale=1)
+            png = read_png(pngs[0])
+            if png.shape != SMALL_HW + (3,) or png.std() == 0:
+                raise AssertionError(f"trainer {path}: served PNG "
+                                     f"{png.shape}, std {png.std()}")
+            emit("trainer", generator=path, dtype="float32",
+                 batch=list(TRAIN_BATCH), steps=steps, init_s=init_s,
+                 pretrain_s=pretrain_s, pretrain_timings=pretrain_timings,
+                 main_s=main_s, steps_per_s=steps / main_s,
+                 ms_per_step=main_s / steps * 1e3,
+                 bare_step_ms=bare_ms[path], timings=timings,
+                 drain_s=drain_s, launches=counts,
+                 pretrain_launches=pretrain_counts, peak_memory_gb=peak_gb,
+                 checkpoint=os.path.basename(newest),
+                 checkpoint_reload_bit_equal=reloaded,
+                 served_png=list(png.shape))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            del trainer, fresh, runner
+            torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1224,8 +1448,10 @@ def main(argv=None) -> int:
     paths.append(phase_whole_image(torch, dtypes, args.seed))
     k1b = phase_k1_backward(torch, dtypes)
     k2g = phase_k2_autograd(torch)
-    train = phase_train(torch, args.seed)
+    train, stage_ms = phase_train(torch, args.seed)
     phase_train_reference(torch)
+    trainer = phase_trainer(torch, args.seed, stage_ms)
+    train = {k: train[k] + trainer[k] for k in train}
     # each path was driven with the counts set to 0 just before it and read
     # just after; the kernels line carries their sum (training is float32)
     launches = {d: {k: sum(p[d][k] for p in paths) for k in paths[0][d]}

@@ -24,13 +24,19 @@ JAX engine exactly:
   step, without padding (plans of <= 120 tiles; larger plans run scene by
   scene).
 
+The engine works on a copy of the module it is given, and takes new
+weights through `update_variables`, as the JAX engine keeps a cast copy of
+its variables (`engine.py:129-155`): the caller's module (a generator in
+training, say) is never moved, switched to `eval()` or cast.
+
 The JAX engine's `mesh=` sharding of the tile batch is not ported
-(multi-card work is ROADMAP Queue 1 item 1), nor is `run_images`'
+(multi-card work is ROADMAP Queue 1 item 7), nor is `run_images`'
 `post_name` contract, which keys a compile cache that eager PyTorch does
 not have.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional
 
 import numpy as np
@@ -53,8 +59,9 @@ class TileEngine:
     """Runs the generator over arbitrarily large (padded) images.
 
     Args:
-      model: a `UNetTMO`; it is moved to `device`, and in the bfloat16 mode
-        its parameters (not its buffers) are cast to bfloat16 once.
+      model: a `UNetTMO`, left as it is: the engine runs a copy of it on
+        `device`, in `eval()` mode, whose parameters (not its buffers) are
+        cast to `dtype` once.
       tile, overlap: tiling config (256 / 64 for the quarter-res protocol).
       chunk: tiles per forward, or None for the JAX engine's policy.
       dtype: compute dtype of the forward; the blend is always float32.
@@ -70,13 +77,21 @@ class TileEngine:
         self.overlap = overlap
         self.chunk = chunk
         self.dtype = dtype
-        self.model = model.to(self.device).eval()
+        self.model = copy.deepcopy(model).to(self.device).eval()
         if dtype != torch.float32:
             # params once, as `engine.py:129-155`; the GCN's relative-
             # position buffer stays float32 for the float32 KNN
             for p in self.model.parameters():
                 p.data = p.data.to(dtype)
         self._plans: dict = {}
+
+    def update_variables(self, state_dict) -> None:
+        """Copy new weights (a state dict of the model's layout, on any
+        device) into the engine's module, each cast to the dtype of the
+        tensor it replaces: parameters to `dtype`, the float32 buffers
+        stay float32 (`engine.py:144-155`)."""
+        with torch.no_grad():
+            self.model.load_state_dict(state_dict, strict=True)
 
     def _chunk_for(self, n: int) -> int:
         """Tiles per conv batch for an n-tile plan (`engine.py:174-201`):

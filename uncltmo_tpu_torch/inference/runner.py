@@ -14,8 +14,6 @@ does the same across groups of scenes.
 from __future__ import annotations
 
 import os
-import queue
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -24,6 +22,7 @@ import torch.nn.functional as F
 
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.config import options_from_model_params
+from uncltmo_tpu_torch.data.pipeline import device_prefetch
 from uncltmo_tpu_torch.inference.engine import TileEngine
 from uncltmo_tpu_torch.models.unet import make_generator, min_input_size
 from uncltmo_tpu_torch.ops import color, preprocess
@@ -107,49 +106,6 @@ class _BoundedSaver:
         self._results += [f.result() for f in self._futures]
         self._futures = []
         return list(self._results)
-
-
-_DONE = object()
-
-
-def _prefetch(items, prepare, depth: int = 2):
-    """Yield prepare(item) for each item, computed on a loader thread that
-    stays `depth` items ahead.  Exceptions re-raise in the consumer; leaving
-    the generator early stops the thread."""
-    q: queue.Queue = queue.Queue(maxsize=depth)
-    stop = threading.Event()
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def worker():
-        try:
-            for item in items:
-                if stop.is_set() or not put(prepare(item)):
-                    return
-            put(_DONE)
-        except BaseException as e:      # noqa: BLE001 — re-raised below
-            put(e)
-
-    t = threading.Thread(target=worker, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if item is _DONE:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
-    finally:
-        stop.set()
-        t.join(timeout=10)
 
 
 class InferenceRunner:
@@ -270,7 +226,7 @@ class InferenceRunner:
                                   os.path.splitext(img_name)[0] + "_UnCLTMO")
 
         with _BoundedSaver() as saver:
-            for img_name, loaded in _prefetch(names, load):
+            for img_name, loaded in device_prefetch(names, load):
                 saver.submit(save, img_name, self._tonemap_loaded(*loaded))
             return saver.finish()
 
@@ -360,7 +316,7 @@ class InferenceRunner:
                                           "_UnCLTMO")
             return saved
 
-        loaded = _prefetch(scene_jobs, load, depth=scene_batch + 1)
+        loaded = device_prefetch(scene_jobs, load, depth=scene_batch + 1)
         pending = None                 # lookahead from the previous group
         with _BoundedSaver() as saver:
             try:

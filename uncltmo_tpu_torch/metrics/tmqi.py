@@ -12,8 +12,8 @@ the tensor's device; the beta density's constant is computed in float64 on
 the host.
 
 Structural fidelity, the revised naturalness (TMQIr) and the `tmqi` entry
-are not ported yet: they raise `NotImplementedError` (ROADMAP Queue 1,
-metrics and tools).
+are not ported yet: they raise `NotImplementedError` (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ _PHAT1, _PHAT2 = 4.4, 10.1
 _MUHAT, _SIGMAHAT = 115.94, 27.99
 
 _NOT_PORTED = ("is not ported yet: the port holds the naturalness score of "
-               "the training losses only (ROADMAP Queue 1, metrics and tools)")
+               "the training losses only (ROADMAP Queue 1 item 4)")
 
 _LOG_BETA = (math.lgamma(_PHAT1) + math.lgamma(_PHAT2)
              - math.lgamma(_PHAT1 + _PHAT2))

@@ -15,7 +15,7 @@ are those of a published checkpoint (`inc.conv.conv`,
   `utils/convert.py` undoes that).
 * Other con_operators, norms, `up_mode` and `bilinear` are not part of the
   published configuration and raise NotImplementedError (ROADMAP Queue 1
-  item 2).
+  item 8).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights, weights_key)
 
 _NOT_PORTED = ("not ported yet: the port covers the published generator "
-               "configuration (ROADMAP Queue 1 item 2)")
+               "configuration (ROADMAP Queue 1 item 8)")
 
 
 def _pad_mode(padding_mode: str) -> str:

@@ -77,7 +77,7 @@ def make_discriminator(opt=None, **overrides) -> SimpleDiscriminator:
             f"d_model={opt.d_model!r} is not ported: the training step "
             "needs SimpleDiscriminator's (logit, feature) pair, and the "
             "DCGAN, PatchGAN and multiscale variants are never trained "
-            "(ROADMAP Queue 1, later slices)")
+            "(ROADMAP Queue 1 item 8)")
     kw = dict(input_size=256, dim=opt.d_down_dim, norm=opt.d_norm,
               last_activation=opt.d_last_activation,
               simpleD_maxpool=bool(opt.simpleD_maxpool),

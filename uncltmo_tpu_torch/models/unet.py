@@ -218,6 +218,19 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def reference_normal_init_(model: nn.Module, seed: int) -> nn.Module:
+    """The reference's other initialisation (`--use_xaviar 0`,
+    `utils/model_save_util.py:26-38`): every conv and linear weight drawn
+    from N(0, 0.02^2), the rest left as built.  Batch norm, whose scales the
+    reference draws too, is not ported (ROADMAP Queue 1 item 8)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                nn.init.normal_(m.weight, 0.0, 0.02, generator=g)
+    return model
+
+
 def bottleneck_grid(input_size: int, depth: int = 4) -> int:
     """Bottleneck spatial size for a valid-conv U-Net input (the GCN
     pos-embed grid): 256 -> 12, 128 -> 4."""
@@ -253,7 +266,7 @@ def make_generator(opt=None, **overrides) -> UNetTMO:
         if not opt.g_doubleConvTranspose or opt.up_mode or opt.bilinear:
             raise NotImplementedError(
                 "only the published doubleConvTranspose / 2x2-ConvT "
-                "generator is ported (ROADMAP Queue 1 item 2)")
+                "generator is ported (ROADMAP Queue 1 item 8)")
         kw = dict(
             n_channels=opt.input_dim, output_dim=opt.output_dim,
             last_layer=opt.last_layer, depth=opt.unet_depth,

@@ -8,7 +8,7 @@ and cast to the input's dtype.  `bicubic_half` (`:21-44`) is the fixed 0.5x
 step between the levels of the structural loss's pyramid: at that scale the
 Keys kernel is the constant 4-tap filter [-3, 19, 19, -3] / 32 on
 edge-clamped taps, a separable stride-2 convolution.  `haar_half` (TMQI's
-pyramid) is not ported yet (ROADMAP Queue 1, metrics and tools).
+pyramid) is not ported yet (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ two depthwise valid 1-D convolutions (`F.conv2d` with `groups=C`).  With
 TF32 off these are full float32 products, the JAX package's
 `Precision.HIGHEST`.  `block_std_mean` (`:162-181`) serves the naturalness
 score of the contrastive losses.  The helpers that only the full TMQI needs
-(`window_mean_auto`, `moving_std_mean`) are not ported yet (ROADMAP Queue 1,
-metrics and tools).
+(`window_mean_auto`, `moving_std_mean`) are not ported yet (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 

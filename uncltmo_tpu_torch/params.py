@@ -1,6 +1,8 @@
 """Constants of the tone-mapping paths (reference `utils/params.py`)."""
 
-# GCN bottleneck grid of a 256 tile (see models/unet.py for the size flow).
+# The published training crop; its GCN bottleneck grid is that of a 256
+# tile (see models/unet.py for the size flow).
+INPUT_SIZE = 256
 GCN_GRID = 12
 
 EPSILON = 1e-08   # reference `utils/params.py:48`
@@ -26,3 +28,9 @@ TILE_OVERLAP_FULL_RES = 192
 # Video recurrence: the share of channels carried from the previous frame at
 # each of the eight carry positions (reference `Unet.py:229-272`).
 RECURRENT_CH_RATIO = 1 / 32
+
+# Output sub-directories of a training run (reference `utils/params.py:
+# 26-31`).
+MODELS_SAVE_PATH = "models"
+LOSS_PATH = "loss_plot"
+RESULTS_PATH = "result_images"

@@ -202,7 +202,14 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
                 fake, hdr_luma, cfg.pyramid_weights, cfg.ssim_window_size)
         # gradients for G's parameters alone: D's `.grad`s keep the D
         # loss's, and nothing of the G loss reaches D's optimizer
-        grads = torch.autograd.grad(err_g + err_struct, g_params)
+        err = err_g + err_struct
+        if err.requires_grad:
+            grads = torch.autograd.grad(err, g_params)
+        else:
+            # no term to differentiate (train_with_D off and no structural
+            # loss): the JAX step differentiates the constant and still
+            # applies Adam to the zero gradients, so warm moments move G
+            grads = [torch.zeros_like(p) for p in g_params]
         for p, g in zip(g_params, grads):
             p.grad = g
         apply_updates(state.opt_G, g_lr)

@@ -96,7 +96,7 @@ def state_dict_from_flax(params: Dict, depth: int = 4
 
     if has_norm(params):
         raise NotImplementedError("batch_norm generators are not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
+                                  "(ROADMAP Queue 1 item 8)")
     sd: Dict[str, np.ndarray] = {}
     _conv(params["inc"]["conv0"]["Conv_0"], sd, "inc.conv.conv")
     _conv(params["inc"]["conv1"]["Conv_0"], sd, "inc.conv.conv1")
@@ -155,7 +155,7 @@ def train_state_from_flax(state, gen: UNetTMO,
     Norm-free models only (`stats_G` must be empty)."""
     if getattr(state, "stats_G", None):
         raise NotImplementedError("batch_norm generators are not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
+                                  "(ROADMAP Queue 1 item 8)")
 
     def to_g(tree):
         return state_dict_from_flax(tree, gen.depth)
