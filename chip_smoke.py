@@ -9,9 +9,10 @@ filters, weights drawn from a seed) at 1080p -- tiled image tone mapping
 recurrence (`run_on_video_path`, `scene_batch` 1 and 2) and whole-image
 inference (`InferenceRunner(whole_image=True)`) -- and the GAN training step
 (`training.train_step.make_train_step`) for the image and the video
-generator at the published batch of 8 x 2 frames of 256 x 256, and the
-training loop around it (`training.trainer.GanTrainer`), and holds
-each hand-written kernel against its plain PyTorch version on the card.
+generator at the published batch of 8 x 2 frames of 256 x 256, the
+training loop around it (`training.trainer.GanTrainer`) and its evaluation
+(`training.tester.Tester`), and holds each hand-written kernel against its
+plain PyTorch version on the card.
 One JSON line per phase:
 
  1. device: the card's name and power limit (nvidia-smi);
@@ -58,9 +59,17 @@ One JSON line per phase:
     sample grid), peak memory; the newest checkpoint reloaded into a fresh
     trainer bit for bit and served by `InferenceRunner` from its .pth on a
     small image (`summary_control`, not run here, times the summaries);
-14. the kernels line (launches summed over all paths; K2 under autograd
-    is an entry of its own), the nvidia-smi line, and `{"ok": true, ...}`
-    last.
+14. tester: `training.tester.Tester` for the image and the video
+    generator on the video phase's 1080p files, float32, as the training
+    CLIs build it: a lambda fitted on the card at construction (held
+    against the CPU fit), one warm and one counted `save_images_for_model`
+    each, ms by stage (forward, TMQI, warp error and its flow, PNG), each
+    render's TMQI against the CPU's, the Horn-Schunck flow and the warp
+    error against the CPU's on a small crop, the flow backend (torch, on
+    the card), launch counts, peak memory;
+15. the kernels line (launches summed over all paths; K2 under autograd
+    is an entry of its own, with its backward's bound), the nvidia-smi
+    line, and `{"ok": true, ...}` last.
 
 Every record carries `at_s`, the seconds since the script started.
 
@@ -531,9 +540,11 @@ def carry_cost(torch, dname, runner) -> dict:
             "carry_channels": [int(c.shape[1]) for c in carry]}
 
 
-def phase_video(torch, dtypes, seed):
-    """Two synthetic scenes through `run_on_video_path` with `scene_batch`
-    1 and 2; a small scene on the card against the CPU runner."""
+def phase_video(torch, dtypes, seed, scenes):
+    """Two synthetic scenes, written into `scenes` (the tester phase reads
+    them again), through `run_on_video_path` with `scene_batch` 1 and 2; a
+    small scene on the card against the CPU runner.  Returns the launch
+    counts and the scenes' lambdas."""
     import numpy as np
     from uncltmo_tpu_torch.config import get_model_params
     from uncltmo_tpu_torch.inference.runner import (InferenceRunner,
@@ -546,15 +557,16 @@ def phase_video(torch, dtypes, seed):
     mp = get_model_params("videoTMO")
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        scenes = os.path.join(tmp, "scenes")
         small = os.path.join(tmp, "small")
-        lams = write_scenes(scenes, rng, ["scene_a", "scene_b"],
-                            VIDEO_FRAMES, FRAME_HW)
+        scene_lams = write_scenes(scenes, rng, ["scene_a", "scene_b"],
+                                  VIDEO_FRAMES, FRAME_HW)
+        lams = dict(scene_lams)
         lams.update(write_scenes(small, rng, ["small"], SMALL_FRAMES,
                                  SMALL_HW))
         lam = os.path.join(tmp, "lambdas.npy")
         np.save(lam, lams)
         n_frames = 2 * VIDEO_FRAMES
+        loaded = stacks = None
         for dname, dtype in dtypes.items():
             runner = InferenceRunner(mp, None, video=True, state_dict=state,
                                      dtype=dtype, device="cuda")
@@ -575,12 +587,15 @@ def phase_video(torch, dtypes, seed):
             launches[dname] = {k: counts[1][k] + counts[2][k]
                                for k in counts[1]}
             # device-only times on preloaded scenes: tiler + recurrence +
-            # blend, then the per-frame postprocess (CUDA events)
-            loaded = [runner._load_scene(
-                [os.path.join(scenes, n, f"{i:03d}.hdr")
-                 for i in range(VIDEO_FRAMES)], lam)
-                for n in ("scene_a", "scene_b")]
-            stacks = torch.stack([torch.stack(ld[2]) for ld in loaded])
+            # blend, then the per-frame postprocess (CUDA events); the
+            # preprocessing does not depend on the dtype, so both dtypes
+            # time the scenes loaded once
+            if loaded is None:
+                loaded = [runner._load_scene(
+                    [os.path.join(scenes, n, f"{i:03d}.hdr")
+                     for i in range(VIDEO_FRAMES)], lam)
+                    for n in ("scene_a", "scene_b")]
+                stacks = torch.stack([torch.stack(ld[2]) for ld in loaded])
 
             def run_scenes(group):
                 if len(group) == 1:
@@ -631,7 +646,7 @@ def phase_video(torch, dtypes, seed):
             if diff > 1:
                 raise AssertionError(f"video {dname}: scene_batch 2 vs 1 "
                                      f"{diff} levels apart")
-            del runner, loaded, stacks
+            del runner
             torch.cuda.empty_cache()
         # a small scene: the card (kernels) against the CPU (plain
         # versions), float32, PNGs within 1 level
@@ -649,7 +664,7 @@ def phase_video(torch, dtypes, seed):
                 or len(pngs["cpu"]) != SMALL_FRAMES or diff > 1):
             raise AssertionError(f"video, card vs CPU runner: {diff} levels "
                                  "apart")
-    return launches
+    return launches, scene_lams
 
 
 def phase_whole_image(torch, dtypes, seed):
@@ -948,11 +963,18 @@ def phase_k2_autograd(torch):
         nbytes = (x.numel() + y.numel() + w1.numel() + w2.numel()
                   + c1 + c2) * x.element_size()
         bms, by = bound_ms(nbytes, flops, "float32")
+        # the backward's least time: conv1 recomputed, the wgrad of both
+        # cells, conv2's dgrad, and conv1's dgrad where dx is needed, each
+        # as many flops as its forward, at the float32 peak
+        conv1 = 2 * 9 * TRAIN_FRAMES * cin * c1 * (s - 2) ** 2
+        conv2 = 2 * 9 * TRAIN_FRAMES * c1 * c2 * (s - 4) ** 2
+        bwd_flops = 2 * conv1 + 2 * conv2 + (conv1 if name != "inc" else 0)
         row.update(forward_ms=fwd, forward_ms_no_grad=fwd_nograd,
                    backward_ms=bwd, plain_forward_ms=plain_fwd,
                    plain_autograd_backward_ms=plain_bwd, pack_ms=pack,
                    library_forward_ms=library, flops=flops, bound_ms=bms,
-                   bound_by=by)
+                   bound_by=by, backward_flops=bwd_flops,
+                   backward_bound_ms=bwd_flops / PEAK_FLOPS["float32"] * 1e3)
         rows.append(row)
         emit("k2_autograd", **row)
         del held, args, mine, ref, y, y_ref, gy, wanted, wanted_ref
@@ -1416,6 +1438,250 @@ def phase_trainer(torch, seed, bare_ms):
     return total
 
 
+class StageClock:
+    """Host seconds of named stages, each closed by a CUDA sync: `wrap`
+    returns `fn` timed under `name`."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds: dict = {}
+        self.calls: list = []
+
+    def wrap(self, name, fn, record=False):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            if record:
+                self.calls.append((name, args, out))
+            return out
+        return timed
+
+    def ms(self) -> dict:
+        return {k + "_ms": v * 1e3 for k, v in self.seconds.items()}
+
+
+def timed_eval(torch, tester, state_dict, out_dir: str, epoch_iter: int):
+    """One `save_images_for_model` with `state_dict`, split into the
+    engine's forward, TMQI, the warp error (its flow on its own) and the
+    PNG writes.  Returns (metrics, ms by stage, the TMQI calls, the flow's
+    devices)."""
+    from uncltmo_tpu_torch.metrics import flow
+    from uncltmo_tpu_torch.training import tester as tester_mod
+    clock = StageClock(torch)
+    devices = []
+    saved = (tester_mod.compute_warp_error, tester_mod.save_uint8_png,
+             flow.horn_schunck_flow)
+    hs = clock.wrap("flow", flow.horn_schunck_flow)
+
+    def hs_seen(img0, img1, **kw):
+        devices.append(img0.device.type)
+        return hs(img0, img1, **kw)
+    engine = tester.engine
+    engine.run_image = clock.wrap("forward", engine.run_image)
+    engine.run_video = clock.wrap("forward", engine.run_video)
+    tester._score = clock.wrap("tmqi", tester._score, record=True)
+    tester_mod.compute_warp_error = clock.wrap("warp_error", saved[0])
+    tester_mod.save_uint8_png = clock.wrap("png", saved[1])
+    flow.horn_schunck_flow = hs_seen
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tester.save_images_for_model(state_dict, out_dir, 0,
+                                               epoch_iter)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        (tester_mod.compute_warp_error, tester_mod.save_uint8_png,
+         flow.horn_schunck_flow) = saved
+        del engine.run_image, engine.run_video, tester._score
+    ms = clock.ms()
+    ms["total_ms"] = total_ms
+    ms["other_ms"] = total_ms - sum(v for k, v in ms.items()
+                                    if k not in ("total_ms", "flow_ms"))
+    return metrics, ms, clock.calls, devices
+
+
+# the Tester's launches of each forward kernel: 4 a frame step; an image
+# render is one step (image G) or four (the video G replicates the frame
+# 4x), a scene one step a frame
+TESTER_LAUNCHES = {"image": 4 * 2, "video": 4 * (VIDEO_FRAMES + 4 * 2)}
+LAMBDA_RTOL = 1e-4            # card vs CPU fit of the same gray
+TMQI_TOL = 1e-4               # Q of one render, card vs CPU
+FLOW_TOL_PX = 0.25            # Horn-Schunck on uint8 renders, card vs CPU
+WARP_RTOL = 1e-2              # E1 / E2 of the same pair, card vs CPU
+
+
+def phase_tester(torch, seed, scenes, scene_lams):
+    """The Tester at full width on the video phase's 1080p files, float32,
+    built as the training CLIs build it: an image-G Tester on two eval
+    images, one of whose lambdas is fitted on the card at construction
+    (`calc_lambda` against a synthetic mean histogram), and a video-G
+    Tester that adds one 4-frame scene.  Each `save_images_for_model` is
+    run once to warm up and once with the counts set to 0, timed by
+    stage.  Held: the fitted lambda against the CPU fit of the same gray,
+    each render's TMQI against the CPU's, the Horn-Schunck flow and the
+    warp error against the CPU's on a SMALL_HW crop of two scene renders,
+    the flow backend (the torch one, on the card) and the launch counts.
+    Returns the launch counts."""
+    import importlib.util
+    import numpy as np
+    from uncltmo_tpu_torch import params
+    from uncltmo_tpu_torch.config import Options
+    from uncltmo_tpu_torch.metrics import warp_error
+    from uncltmo_tpu_torch.metrics.flow import horn_schunck_flow
+    from uncltmo_tpu_torch.metrics.tmqi import tmqi
+    from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
+    from uncltmo_tpu_torch.ops import lambda_est
+    from uncltmo_tpu_torch.training.tester import Tester
+    from uncltmo_tpu_torch.utils.io import read_hdr_image
+    # renders on the card take the torch flow and warp whether cv2 imports
+    # or not; recorded beside the flow's backend
+    cv2_present = importlib.util.find_spec("cv2") is not None
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_dir = os.path.join(tmp, "eval")
+        video_root = os.path.join(tmp, "video")
+        os.makedirs(eval_dir)
+        os.makedirs(video_root)
+        for name, scene in (("a", "scene_a"), ("b", "scene_b")):
+            os.symlink(os.path.join(scenes, scene, "000.hdr"),
+                       os.path.join(eval_dir, name + ".hdr"))
+        os.symlink(os.path.join(scenes, "scene_a"),
+                   os.path.join(video_root, "scene_a"))
+        lam = os.path.join(tmp, "lambdas.npy")
+        np.save(lam, {"a": scene_lams["scene_a"],
+                      "scene_a": scene_lams["scene_a"]})
+        hist = os.path.join(tmp, "mean_hist.npy")
+        t = np.linspace(0.4, 1.6, 20, dtype=np.float32)
+        np.save(hist, {"mean_vals": t, "all_bins": np.linspace(0, 1, 21)})
+        opt = Options(test_dataroot_original_hdr=eval_dir,
+                      f_factor_path=lam, mean_hist_path=hist,
+                      lambdas_path=os.path.join(tmp, "lambdas"),
+                      output_dir=tmp)
+        gen = seeded_init_(UNetTMO(), seed).to("cuda")
+        fit = StageClock(torch)
+        saved_fit = lambda_est.fit_lambda
+        lambda_est.fit_lambda = fit.wrap("lambda_fit", saved_fit)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            image_t = Tester(opt, gen, device="cuda")
+            init_s = time.perf_counter() - t0
+        finally:
+            lambda_est.fit_lambda = saved_fit
+        video_t = Tester(opt, gen, video=True, test_video_path=video_root,
+                         device="cuda")
+        # the fitted lambda against the CPU fit of the same gray
+        rgb = read_hdr_image(os.path.join(eval_dir, "b.hdr"))
+        gray = rgb[..., :3] @ np.asarray(params.REC601, np.float32)
+        gray = gray / gray.max()
+        lam_card = float(image_t.lambda_table["b"])
+        lam_cpu = lambda_est.fit_lambda(gray, t, device="cpu")
+        lam_err = abs(lam_card - lam_cpu) / lam_cpu
+        if not lam_err <= LAMBDA_RTOL:
+            ces = {v: lambda_est.cross_entropy_np(v, gray, t, 20)
+                   for v in (lam_card, lam_cpu)}
+            raise AssertionError(f"tester: lambda {lam_card} on the card, "
+                                 f"{lam_cpu} on the CPU; CE {ces}")
+        rows = {}
+        for path, tester in (("image", image_t), ("video", video_t)):
+            # the trainer hands its live weights on the card
+            timed_eval(torch, tester, gen.state_dict(),
+                       os.path.join(tmp, "warm_" + path), 0)
+            reset_counts()
+            metrics, ms, scored, devices = timed_eval(
+                torch, tester, gen.state_dict(), os.path.join(tmp, path),
+                1)
+            counts = read_counts()
+            want = TESTER_LAUNCHES[path]
+            if any(v != want for v in counts.values()):
+                raise AssertionError(f"tester {path}: launches {counts}, "
+                                     f"expected {want} each")
+            # each render's TMQI on the card against the CPU's: Q, S, N
+            # and the five s_l.  Q and S are NaN where an s_l is
+            # negative (an untrained G can anti-correlate with its
+            # input); NaN must meet NaN, and at least one render must
+            # have a finite Q, so that Q and S are compared
+            q_err, n_nan = 0.0, 0
+            for _, (orig, out01), q in scored:
+                card = tmqi(orig, out01 * 255.0, device="cuda")
+                cpu = tmqi(orig, out01.cpu() * 255.0, device="cpu")
+                a = np.array(card[:3] + tuple(card[3]))
+                b = np.array(cpu[:3] + tuple(cpu[3]))
+                if (not np.array_equal(np.isnan(a), np.isnan(b))
+                        or not np.array_equal([q], a[:1], equal_nan=True)
+                        or np.nanmax(np.abs(a - b)) > TMQI_TOL):
+                    raise AssertionError(
+                        f"tester {path}: TMQI Q, S, N, s_l {a.tolist()} on"
+                        f" the card (the Tester's Q {q}), {b.tolist()} "
+                        "on the CPU")
+                q_err = max(q_err, float(np.nanmax(np.abs(a - b))))
+                n_nan += int(np.isnan(a[0]))
+            if n_nan == len(scored):
+                raise AssertionError(f"tester {path}: every render's Q "
+                                     "is NaN; Q and S were not compared")
+            rec = dict(generator=path, dtype="float32",
+                       frame=list(FRAME_HW), renders=len(scored),
+                       metrics=metrics, launches=counts,
+                       expected_launches=want,
+                       tmqi_max_abs_err_cuda_vs_cpu=q_err,
+                       renders_with_nan_q=n_nan, **ms)
+            if path == "video":
+                resolved = warp_error.resolve_flow_algo(card=True)
+                if (metrics.get("flow_algo") != "hs_jax"
+                        or resolved != "hs_jax"
+                        or devices != ["cuda"]):
+                    raise AssertionError(
+                        f"tester video: flow {metrics.get('flow_algo')} "
+                        f"/ {resolved} on {devices}, expected the torch "
+                        "Horn-Schunck on cuda")
+                # two scene renders, cropped: card against the CPU
+                frames = [out for _, (_, out), _ in scored[:2]]
+                h, w = SMALL_HW
+                pair = [f[:h, :w] for f in frames]
+                u8 = [(f[..., 0] * 255.0).clamp(0, 255).to(torch.uint8)
+                      for f in pair]
+                f_card = horn_schunck_flow(u8[0].float() / 255.0,
+                                           u8[1].float() / 255.0)
+                f_cpu = horn_schunck_flow(u8[0].cpu().float() / 255.0,
+                                          u8[1].cpu().float() / 255.0)
+                flow_err = (f_card.cpu() - f_cpu).abs().max().item()
+                # the Tester's call on the card, against the torch
+                # branch on the CPU (on the host, with cv2, the branch
+                # would be cv2's)
+                e_card = warp_error.compute_warp_error(pair[0], pair[1])
+                e_cpu = warp_error.warp_error_torch(pair[0].cpu(),
+                                                    pair[1].cpu())
+                e_err = max(abs(a - b) / abs(b)
+                            for a, b in zip(e_card, e_cpu))
+                rec.update(flow_backend=resolved, flow_devices=devices,
+                           cv2_importable=cv2_present,
+                           flow_max_abs_px_cuda_vs_cpu=flow_err,
+                           warp_e1_e2_cuda=list(e_card),
+                           warp_e1_e2_cpu=list(e_cpu),
+                           warp_rel_err_cuda_vs_cpu=e_err)
+                if not (flow_err <= FLOW_TOL_PX and e_err <= WARP_RTOL):
+                    raise AssertionError(
+                        f"tester: flow {flow_err} px, E1/E2 {e_card} vs "
+                        f"{e_cpu} card vs CPU")
+            else:
+                rec.update(init_s=init_s, lambda_card=lam_card,
+                           lambda_cpu=lam_cpu, lambda_rel_err=lam_err,
+                           **fit.ms())
+            emit("tester", **rec)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        emit("tester_memory",
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del image_t, video_t, gen
+        torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1444,20 +1710,26 @@ def main(argv=None) -> int:
     phase_generator(torch, dtypes, args.seed)
     paths = [phase_end_to_end(torch, dtypes, args.seed, args.frames)]
     phase_kernels_extra(torch, dtypes)
-    paths.append(phase_video(torch, dtypes, args.seed))
-    paths.append(phase_whole_image(torch, dtypes, args.seed))
-    k1b = phase_k1_backward(torch, dtypes)
-    k2g = phase_k2_autograd(torch)
-    train, stage_ms = phase_train(torch, args.seed)
-    phase_train_reference(torch)
-    trainer = phase_trainer(torch, args.seed, stage_ms)
+    with tempfile.TemporaryDirectory() as shared:
+        # the video phase's 1080p scenes, read again by the tester phase
+        scenes = os.path.join(shared, "scenes")
+        video, scene_lams = phase_video(torch, dtypes, args.seed, scenes)
+        paths.append(video)
+        paths.append(phase_whole_image(torch, dtypes, args.seed))
+        k1b = phase_k1_backward(torch, dtypes)
+        k2g = phase_k2_autograd(torch)
+        train, stage_ms = phase_train(torch, args.seed)
+        phase_train_reference(torch)
+        trainer = phase_trainer(torch, args.seed, stage_ms)
+        tester = phase_tester(torch, args.seed, scenes, scene_lams)
     train = {k: train[k] + trainer[k] for k in train}
     # each path was driven with the counts set to 0 just before it and read
-    # just after; the kernels line carries their sum (training is float32)
+    # just after; the kernels line carries their sum (training and the
+    # Tester are float32)
     launches = {d: {k: sum(p[d][k] for p in paths) for k in paths[0][d]}
                 for d in dtypes}
     for k in launches["float32"]:
-        launches["float32"][k] += train[k]
+        launches["float32"][k] += train[k] + tester[k]
 
     kernels = []
     for name, route, source, replaces, rows in (
@@ -1512,6 +1784,7 @@ def main(argv=None) -> int:
         "batch": TRAIN_FRAMES,
         "backward_calls": train["fused_double_conv3x3_backward_calls"],
         "backward_ms": sum(x["backward_ms"] for x in k2g),
+        "backward_bound_ms": sum(x["backward_bound_ms"] for x in k2g),
         "plain_autograd_backward_ms": sum(x["plain_autograd_backward_ms"]
                                           for x in k2g),
         "pack_ms": sum(x["pack_ms"] for x in k2g)})

@@ -20,8 +20,6 @@ NOT_YET_CONSUMED = {
     "d_nlayers": "item 8 (the other discriminators)",
     "num_D": "item 8",
     "d_fully_connected": "item 8",
-    "lambdas_path": "item 6 (the Tester fits missing lambdas)",
-    "baseline_flow_dir": "item 6 (the video warp error)",
     "fid_res_path": "item 9 (FID)",
     "inception_weights": "item 9",
 }

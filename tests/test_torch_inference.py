@@ -179,16 +179,13 @@ def test_run_on_path_pipelined_matches_sequential(tmp_path):
 
 
 def test_unported_paths_name_the_roadmap(tmp_path):
-    """What the port still refuses, by name: lambda estimation, the other
-    con_operators, norms and activations, `up_mode` / `bilinear` /
-    single-ConvT generators, `.exr` / `.dng` files."""
-    from uncltmo_tpu_torch.cli.test_imageTMO import get_args, run_trained_model
+    """What the port still refuses, by name: the other con_operators,
+    norms and activations, `up_mode` / `bilinear` / single-ConvT
+    generators, `.exr` / `.dng` files."""
     from uncltmo_tpu_torch.config import options_from_model_params
     from uncltmo_tpu_torch.models.unet import make_generator
     from uncltmo_tpu_torch.utils.io import read_hdr_image
     mp = get_model_params("m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_trained_model(get_args(["--calc_lambda", "1", "--device", "cpu"]))
     for con_operator in ("square", "square_root", "original_unet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             UNetTMO(con_operator=con_operator)

@@ -120,16 +120,6 @@ def test_batched_naturalness_matches_jax():
     np.testing.assert_allclose(one, ref[2], rtol=VALUE_RTOL)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: ttmqi.statistical_naturalness(torch.zeros(22, 22), revised=True),
-    lambda: ttmqi.tmqi(None, None), lambda: ttmqi.tmqi_gray(None, None),
-    lambda: ttmqi.structural_fidelity(None, None)],
-    ids=["revised", "tmqi", "tmqi_gray", "structural_fidelity"])
-def test_the_rest_of_tmqi_raises_by_name(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        call()
-
-
 # ------------------------------------------------------- adversarial
 def _loss_cases():
     """name -> (jax fn, port fn, NHWC inputs, index of the differentiated

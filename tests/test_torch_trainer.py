@@ -14,7 +14,8 @@ about bookkeeping.
   on both sides (that file's docstring says why); `drop_path` is patched on
   both sides to read its masks from one table, as there.
 * Each refusal raises by name; both training CLIs run a tiny `--device
-  cpu` run in a subprocess; a training checkpoint is served by
+  cpu` run with an evaluation directory in a subprocess; a training
+  checkpoint is served by
   `InferenceRunner` and both serving CLIs from its `.pth`.
 """
 import dataclasses
@@ -326,6 +327,10 @@ def test_more_than_one_card_is_refused_by_name(tmp_path, monkeypatch):
 # ----------------------------------------------------------------- CLIs
 @pytest.mark.parametrize("cli", ["main_train_image", "main_train"])
 def test_training_cli_runs_on_the_cpu(tmp_path, cli):
+    """A tiny run of each training CLI in a subprocess, with an evaluation
+    directory: the Tester scores the generator at each 1/4-epoch summary
+    (the video CLI also on the scene root of $UNCLTMO_TEST_HDRVIDEO) and
+    writes model_results/."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-m", f"uncltmo_tpu_torch.cli.{cli}",
                           "--help"], capture_output=True, text=True, env=env,
@@ -333,11 +338,24 @@ def test_training_cli_runs_on_the_cpu(tmp_path, cli):
     assert out.returncode == 0 and "--device" in out.stdout
     assert "--train_input_size" in out.stdout
     kw = _write_npy_dirs(tmp_path)
+    rng = np.random.default_rng(8)
+    (tmp_path / "eval" / "scene").mkdir(parents=True)
+    (tmp_path / "scenes" / "scene").mkdir(parents=True)
+    for i in range(2):
+        np.save(tmp_path / "eval" / f"im{i}.npy",
+                (rng.random((64, 80, 3)).astype(np.float32) ** 2) * 300.0)
+        # above the warp error's 2 x 32-px crop; 10 x 10 at the fifth level
+        np.save(tmp_path / "scenes" / "scene" / f"{i:03d}.npy",
+                (rng.random((80, 80, 3)).astype(np.float32) ** 2) * 300.0)
+    np.save(tmp_path / "eval_lams.npy",
+            {"im0": 300.0, "im1": 500.0, "scene": 400.0})
+    env["UNCLTMO_TEST_HDRVIDEO"] = str(tmp_path / "scenes")
     argv = ["--device", "cpu", "--batch_size", "2", "--num_epochs", "1",
             "--d_pretrain_epochs", "1", "--train_input_size", str(SIZE),
             "--filters", "8", "--data_workers", "1", "--log_every", "1",
             "--result_dir_prefix", str(tmp_path / "run"),
-            "--test_dataroot_original_hdr", "none"]
+            "--test_dataroot_original_hdr", str(tmp_path / "eval"),
+            "--f_factor_path", str(tmp_path / "eval_lams.npy")]
     for k, v in kw.items():
         argv += [f"--{k}", v]
     out = subprocess.run([sys.executable, "-m", f"uncltmo_tpu_torch.cli.{cli}"]
@@ -345,14 +363,22 @@ def test_training_cli_runs_on_the_cpu(tmp_path, cli):
                          cwd=str(tmp_path), timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     recs = _records(tmp_path / "run")
-    assert [r["phase"] for r in recs] == ["pretrain"] * 2 + ["train"] * 2
+    assert [r["phase"] for r in recs if r["phase"] != "test"] == \
+        ["pretrain"] * 2 + ["train"] * 2
+    tests = [r for r in recs if r["phase"] == "test"]
+    want = {"test/tmqi"} | ({"test/warp_e1", "test/warp_e2"}
+                            if cli == "main_train" else set())
+    assert len(tests) == 2 and all(want <= set(r) for r in tests)
     assert os.path.exists(tmp_path / "run" / "run_settings.npy")
     assert ckpt.latest_checkpoint(str(tmp_path / "run" / "models")).endswith(
         "net_epoch0_iter2.pth")
-    # the Tester is not ported: an evaluation directory is refused by name
-    from uncltmo_tpu_torch.cli.main_train import main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        main(argv + ["--test_dataroot_original_hdr", str(tmp_path)])
+    results = tmp_path / "run" / "model_results"
+    tag = "_m1st" if cli == "main_train" else "_tmqi"
+    dirs = sorted(os.listdir(results))
+    assert [d.split(tag)[0] for d in dirs] == ["epoch0_iter1", "epoch0_iter2"]
+    for d in dirs:
+        assert sorted(os.listdir(results / d / "color_stretch")) == [
+            "im0_color_stretch.png", "im1_color_stretch.png"]
 
 
 def test_a_training_checkpoint_is_served_from_its_pth(tmp_path):

@@ -8,8 +8,10 @@
 Every flag of `config.Options` is accepted.  `get_opt` seeds, creates the
 output directories and writes `run_settings.npy`; checkpoints land in
 {result_dir_prefix}/models as `net_epoch{E}_iter{I}.pth`, which the
-serving CLIs read.  The Tester is not ported yet (ROADMAP Queue 1 item 6):
-a `--test_dataroot_original_hdr` that is a directory is refused.
+serving CLIs read.  When `--test_dataroot_original_hdr` is a directory, a
+`Tester` evaluates the generator on it every 1/4 epoch (for the video
+generator also on the scene directories under $UNCLTMO_TEST_HDRVIDEO) and
+writes {result_dir_prefix}/model_results/epoch*_iter*_<metrics>/.
 """
 from __future__ import annotations
 
@@ -32,13 +34,15 @@ def parse(argv=None):
 def main(argv=None, video: bool = True):
     from uncltmo_tpu_torch.training.trainer import GanTrainer
     opt, device = parse(argv)
+    trainer = GanTrainer(opt, video=video, device=device)
     if os.path.isdir(opt.test_dataroot_original_hdr):
-        raise NotImplementedError(
-            f"--test_dataroot_original_hdr {opt.test_dataroot_original_hdr!r}"
-            " is a directory, but the Tester that would evaluate it is not "
-            "ported yet (ROADMAP Queue 1 item 6); pass a path that is not a "
-            "directory to train without it")
-    GanTrainer(opt, video=video, device=device).train()
+        from uncltmo_tpu_torch.training.tester import Tester
+        trainer.tester = Tester(
+            opt, trainer.state.gen, video=video,
+            test_video_path=(os.environ.get("UNCLTMO_TEST_HDRVIDEO", "")
+                             if video else None),
+            device=device)
+    trainer.train()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@ Loads run_settings.npy from --model_path and a reference `.pth` generator
 checkpoint, and writes {name}_UnCLTMO.png per input `.hdr`/`.npy` file.  A
 `.msgpack` checkpoint of the JAX package is converted first with
 `python cli/export_checkpoint.py --checkpoint X.msgpack --output X.pth`.
+With `--calc_lambda 1 --mean_hist_path H.npy`, the lambdas that
+--f_factor_path lacks are fitted first (on --device) into
+{lambda_output_path}/input_images_lambdas.npy, which the run then reads.
 """
 from __future__ import annotations
 
@@ -50,8 +53,9 @@ def get_args(argv=None):
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--calc_lambda", type=int, default=0,
-                        help="estimate missing lambdas before running "
-                             "(not ported yet)")
+                        help="fit the lambdas f_factor_path lacks for the "
+                             "input images (needs --mean_hist_path) into "
+                             "lambda_output_path before running")
     parser.add_argument("--whole_image", type=int, default=0,
                         help="non-tiled whole-image forward with bicubic "
                              "pad removal (the reference's "
@@ -92,8 +96,14 @@ def run_trained_model(args):
     from uncltmo_tpu_torch.inference.runner import InferenceRunner
 
     if args.calc_lambda:
-        raise NotImplementedError("--calc_lambda: lambda estimation is not "
-                                  "ported yet (ROADMAP Queue 1 item 5)")
+        from uncltmo_tpu_torch.ops.lambda_est import calc_lambda
+        from uncltmo_tpu_torch.utils.io import HDR_EXTENSIONS
+        new_path = calc_lambda(args.f_factor_path, HDR_EXTENSIONS,
+                               args.input_images_path, args.mean_hist_path,
+                               args.lambda_output_path, int(args.bins),
+                               device=args.device)
+        if new_path:
+            args.f_factor_path = new_path
     start = time.time()
     net_path = find_net_path(args.model_path, args.net_name)
     model_params = get_model_params(

@@ -51,6 +51,16 @@ from uncltmo_tpu_torch.models.unet import video_apply
 STREAM_TILE_THRESHOLD = 120
 
 
+def disable_tf32(device) -> None:
+    """Turn TF32 off for cuDNN and matmul when `device` is a CUDA device:
+    the port's float32 paths (serving, training, the Tester) hold the JAX
+    package's float32 results, which TF32's 10-bit products would round.
+    The flags are global to the process."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -65,6 +75,7 @@ class TileEngine:
       tile, overlap: tiling config (256 / 64 for the quarter-res protocol).
       chunk: tiles per forward, or None for the JAX engine's policy.
       dtype: compute dtype of the forward; the blend is always float32.
+        A float32 engine on the card turns TF32 off (`disable_tf32`).
       device: "cuda" by default; tests pass "cpu".
     """
 
@@ -73,6 +84,8 @@ class TileEngine:
                  chunk: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, device="cuda"):
         self.device = torch.device(device)
+        if dtype == torch.float32:
+            disable_tf32(self.device)
         self.tile = tile
         self.overlap = overlap
         self.chunk = chunk

@@ -130,10 +130,6 @@ class InferenceRunner:
             raise ValueError(_NO_ADD_FRAME_VIDEO)
         self.video = video
         self.device = torch.device(device)
-        if self.device.type == "cuda" and dtype == torch.float32:
-            # cuDNN's default TF32 would break float32 parity
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.model_params = model_params
         gen = make_generator(options_from_model_params(model_params))
         load_state(gen, state_dict if state_dict is not None

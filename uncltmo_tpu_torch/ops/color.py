@@ -1,5 +1,6 @@
-"""Color math on (H, W, C) tensors: Rec.601 luma, ratio-image color
-re-attachment, percentile stretches (port of `uncltmo_tpu/ops/color.py`).
+"""Color math on (H, W, C) tensors: Rec.601 luma, TMQI's Rec.709 luma,
+ratio-image color re-attachment, percentile stretches (port of
+`uncltmo_tpu/ops/color.py`).
 
 Percentiles follow np.percentile's "linear" rule, from one sort of the
 flattened image: `torch.quantile` refuses inputs above 2^24 elements, and
@@ -17,6 +18,12 @@ def to_gray(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.601 luma.  rgb: (..., 3) -> (..., 1)."""
     w = torch.tensor(params.REC601, dtype=rgb.dtype, device=rgb.device)
     return torch.sum(rgb[..., :3] * w, dim=-1, keepdim=True)
+
+
+def to_gray_709(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luma (TMQI's RGBtoY).  rgb: (..., 3) -> (...)."""
+    w = torch.tensor(params.REC709, dtype=rgb.dtype, device=rgb.device)
+    return torch.sum(rgb[..., :3] * w, dim=-1)
 
 
 def back_to_color(im_hdr: torch.Tensor, fake_luma: torch.Tensor

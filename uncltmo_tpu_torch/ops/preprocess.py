@@ -1,8 +1,12 @@
 """HDR preprocessing on (H, W, C) tensors: the lambda-log luma, the U-Net
 grid pad and its crop, and the add_frame models' batch centre crop (port of
-`uncltmo_tpu/ops/preprocess.py:16-98`)."""
+`uncltmo_tpu/ops/preprocess.py`); and on the host, in numpy, the size
+policy that lambda estimation applies to oversized frames."""
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,3 +85,51 @@ def crop_center_batch(x: torch.Tensor, diff_y: int, diff_x: int
     i = int(round((h - th) / 2.0))
     j = int(round((w - tw) / 2.0))
     return x[:, :, i:i + th, j:j + tw]
+
+
+@functools.lru_cache(maxsize=8)
+def _area_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of cv2's INTER_AREA downscale along
+    one axis (`computeResizeAreaTab`): output i averages the input interval
+    [i s, (i + 1) s), s = n_in / n_out, each input cell weighted by its
+    overlap; an overlap below 1e-3 of a cell is dropped, as cv2 drops it.
+    s need not be an integer (w // 3 of a width that 3 does not divide)."""
+    scale = n_in / n_out
+    w = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        f1 = i * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(int(np.floor(f2)), n_in - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            w[i, s1 - 1] = (s1 - f1) / cell
+        w[i, s1:s2] = 1.0 / cell
+        if f2 - s2 > 1e-3:
+            w[i, s2] = min(f2 - s2, 1.0, cell) / cell
+    return w.astype(np.float32)
+
+
+def area_resize_np(im: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """(H, W) or (H, W, C) float image -> (out_h, out_w[, C]) float32 by
+    the area rule of `cv2.resize(..., interpolation=cv2.INTER_AREA)` for a
+    downscale: two matrix products, rows first."""
+    im = np.asarray(im, np.float32)
+    h, w = im.shape[:2]
+    rows = _area_matrix(h, out_h) @ im.reshape(h, -1)
+    rows = rows.reshape(out_h, w, -1).transpose(0, 2, 1)
+    out = (rows @ _area_matrix(w, out_w).T).transpose(0, 2, 1)
+    return out.reshape((out_h, out_w) + im.shape[2:])
+
+
+def reshape_image_np(im: np.ndarray) -> np.ndarray:
+    """The inference size policy of `utils/hdr_image_util.py:141-158` (the
+    JAX package's `reshape_image_np(..., train_reshape=False)`): a frame
+    whose short side is above 3000 is cut to 1/4, above 2000 to 1/3, by
+    the area rule; others are returned as they are."""
+    h, w = im.shape[0], im.shape[1]
+    if min(h, w) > 3000:
+        return area_resize_np(im, h // 4, w // 4)
+    if min(h, w) > 2000:
+        return area_resize_np(im, h // 3, w // 3)
+    return im

@@ -7,8 +7,8 @@ are built in float64 on the host, exactly as the JAX package builds them,
 and cast to the input's dtype.  `bicubic_half` (`:21-44`) is the fixed 0.5x
 step between the levels of the structural loss's pyramid: at that scale the
 Keys kernel is the constant 4-tap filter [-3, 19, 19, -3] / 32 on
-edge-clamped taps, a separable stride-2 convolution.  `haar_half` (TMQI's
-pyramid) is not ported yet (ROADMAP Queue 1 item 4).
+edge-clamped taps, a separable stride-2 convolution.  `haar_half`
+(`:47-56`) is TMQI's pyramid step, a 2x2 mean with stride 2.
 """
 from __future__ import annotations
 
@@ -80,3 +80,11 @@ def bicubic_half(x: torch.Tensor) -> torch.Tensor:
                       axis=2, stride=2)
     return _conv1d_valid(F.pad(x, (1, pad_w, 0, 0), mode="replicate"), k,
                          axis=3, stride=2)
+
+
+def haar_half(x: torch.Tensor) -> torch.Tensor:
+    """TMQI's pyramid downsample (reference `TMQI.py:150-165`): the valid
+    2x2 mean with stride 2, NCHW -> NCHW; odd sizes floor."""
+    c = x.shape[1]
+    kern = torch.full((c, 1, 2, 2), 0.25, dtype=x.dtype, device=x.device)
+    return F.conv2d(x, kern, stride=2, groups=c)

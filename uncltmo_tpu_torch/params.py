@@ -18,6 +18,8 @@ SQUARE_AND_SQUARE_ROOT = "square_and_square_root"
 
 # Rec.601 luma weights (reference `utils/hdr_image_util.py:72-82`).
 REC601 = (0.299, 0.587, 0.114)
+# Rec.709 luma weights, TMQI's RGB -> Y (reference `TMQI.py:46-49`).
+REC709 = (0.2126, 0.7152, 0.0722)
 
 # Tiled-inference defaults, quarter-res protocol (reference
 # `utils/model_save_util.py:303-304`).

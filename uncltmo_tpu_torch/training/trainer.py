@@ -28,10 +28,12 @@ What the port decides for itself:
   sample grid's weights a clone on the step's device.  The host worker
   loads that clone into a generator of the grid's own and runs its forward
   there, on the card as the steps do.
+* The Tester (`training.tester`, attached by the training CLIs) runs on
+  the training thread inside the summary, so nothing changes G while it
+  reads the live weights; it copies them into its engine's own module.
 
 Not ported yet, each refused by name: more than one card (ROADMAP Queue 1
-item 7), bfloat16 training and batch norm (item 8), the Tester (item 6;
-`tester` is a hook that stays None), FID (item 9).
+item 7), bfloat16 training and batch norm (item 8), FID (item 9).
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from uncltmo_tpu_torch.config import Options, get_model_params, weight_list
 from uncltmo_tpu_torch.data.pipeline import (LambdaTable, SyntheticDataSource,
                                              TrainDataSource, TrainPipeline,
                                              device_prefetch)
+from uncltmo_tpu_torch.inference.engine import disable_tf32
 from uncltmo_tpu_torch.models.discriminator import make_discriminator
 from uncltmo_tpu_torch.models.unet import (bottleneck_grid, make_generator,
                                            reference_normal_init_,
@@ -142,10 +145,7 @@ class GanTrainer:
             video=video,
             train_with_D=bool(opt.train_with_D),
             cl_loss_type=str(opt.cl_loss_type))
-        if self.device.type == "cuda":
-            # float32 training: cuDNN's and matmul's TF32 would round inputs
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        disable_tf32(self.device)           # float32 training
         # moves both modules to the device, then Adam over them there
         self.train_step = make_train_step(gen, disc, self.cfg,
                                           device=self.device)
@@ -407,11 +407,12 @@ class GanTrainer:
         """The 1/4-epoch hook (`GanTrainer.py:520-544`): the Tester's eval
         when one is attached, a checkpoint, and on the host worker the
         console line, the curves, the grad-flow plot and the sample grid.
-        The checkpoint reads a host copy taken here, the grid a device
-        clone (queued on the step's stream before any later step)."""
+        The Tester reads G's live weights on the card, here on the training
+        thread; the checkpoint reads a host copy taken here, the grid a
+        device clone (queued on the step's stream before any later step)."""
         if self.tester is not None:
             test_metrics = self.tester.save_images_for_model(
-                self._generator_state_dict(), self.opt.output_dir, epoch,
+                self.state.gen.state_dict(), self.opt.output_dir, epoch,
                 epoch_iter)
             numeric = {f"test/{k}": float(v)
                        for k, v in test_metrics.items()
