@@ -9,10 +9,13 @@ filters, weights drawn from a seed) at 1080p -- tiled image tone mapping
 recurrence (`run_on_video_path`, `scene_batch` 1 and 2) and whole-image
 inference (`InferenceRunner(whole_image=True)`) -- and the GAN training step
 (`training.train_step.make_train_step`) for the image and the video
-generator at the published batch of 8 x 2 frames of 256 x 256, the
-training loop around it (`training.trainer.GanTrainer`) and its evaluation
-(`training.tester.Tester`), and holds each hand-written kernel against its
-plain PyTorch version on the card.
+generator at the published batch of 8 x 2 frames of 256 x 256, in float32
+and in bfloat16, the training loop around it
+(`training.trainer.GanTrainer`) and its evaluation
+(`training.tester.Tester`), the generator's other configurations (a
+batch-norm generator trained and served, one forward of every other
+option), and holds each hand-written kernel against its plain PyTorch
+version on the card.
 One JSON line per phase:
 
  1. device: the card's name and power limit (nvidia-smi);
@@ -59,6 +62,7 @@ One JSON line per phase:
     sample grid), peak memory; the newest checkpoint reloaded into a fresh
     trainer bit for bit and served by `InferenceRunner` from its .pth on a
     small image (`summary_control`, not run here, times the summaries);
+    the video generator's epochs have 10 steps;
 14. tester: `training.tester.Tester` for the image and the video
     generator on the video phase's 1080p files, float32, as the training
     CLIs build it: a lambda fitted on the card at construction (held
@@ -67,9 +71,26 @@ One JSON line per phase:
     render's TMQI against the CPU's, the Horn-Schunck flow and the warp
     error against the CPU's on a small crop, the flow backend (torch, on
     the card), launch counts, peak memory;
-15. the kernels line (launches summed over all paths; K2 under autograd
-    is an entry of its own, with its backward's bound), the nvidia-smi
-    line, and `{"ok": true, ...}` last.
+15. k2_autograd in bfloat16 (B = 16, timed): K2's Function against
+    autograd of the plain version in bfloat16, the backward formula on the
+    plain output and the end-to-end gradients;
+16. train_bf16: the image and the video generator at the published batch
+    in bfloat16 (`compute_dtype=torch.bfloat16`, autocast), stages 0-2:
+    the first step against the float32 step from the same state, batch
+    and drop path (losses, the fake's statistics, a forward's fake in
+    relative L2), step ms beside the float32 `train` phase's, launches a
+    step (every launch's dtype recorded: all bfloat16), peak memory, a
+    profile of a stage-0 step;
+17. options: a batch-norm generator's running statistics after one step
+    (published epsilon) and three (epsilon 1e-2) on the card against the
+    CPU at 112 x 112; three batch-norm steps at the published batch
+    (launches: K1 only) and that generator served on a 1080p frame by the
+    card's and the CPU's runner (PNGs within one level); one forward at
+    the published width of every other option with its K1 / K2 launches;
+18. the kernels line (launches summed over all paths; K2 under autograd
+    is an entry of its own per dtype, with its backward's bound, and so
+    is K1's backward), the nvidia-smi line, and `{"ok": true, ...}`
+    last.
 
 Every record carries `at_s`, the seconds since the script started.
 
@@ -115,6 +136,9 @@ VIDEO_BATCH = 120             # tiles of two 1080p scenes in one frame step
 TRAIN_BATCH = (8, 2, 256)      # samples, frames a sample, frame size
 TRAIN_FRAMES = TRAIN_BATCH[0] * TRAIN_BATCH[1]
 TRAINER_ITEMS = 160            # samples of the trainer phase's epochs
+# the video generator's trainer epochs: 10 steps (20 before the train_bf16
+# and options phases came, cut to pay for them)
+TRAINER_VIDEO_ITEMS = 80
 # the batches the training step gives the kernels: all 16 frames at once
 # (image generator) and one frame of every sample (video generator)
 TRAIN_KERNEL_BATCHES = (TRAIN_FRAMES, TRAIN_BATCH[0])
@@ -153,6 +177,37 @@ REF_ENCODER_L2_TOL = 5e-2      # published epsilon: relative L2 of exp_avg
 REF_ENCODER_MAX_TOL = 0.15     # and entry by entry, of its max-abs
 REF_ENCODER_LOG_RTOL = 5e-2
 ENCODER = ("inc.", "down_path.0.", "down_path.1.", "down_path.2.")
+# bfloat16 training against the float32 step from the same state, batch
+# and drop path (tests/test_torch_bf16_train.py measures 1e-5 to 2.7e-2 on
+# the losses and 1.9e-3 on the fake on the CPU): losses and the fake's
+# statistics relative, the fake of a forward in relative L2
+BF16_LOG_RTOL = 5e-2
+BF16_FAKE_L2_TOL = 3e-2
+# K2 under autograd in bfloat16 against autograd of the plain version in
+# bfloat16, end to end: both backwards are cuDNN's bf16 convolutions, so
+# they differ by the forwards' rounding (2^-8 of an element) and the relu
+# flips it causes; relative L2
+K2_BF16_GRAD_L2_TOL = 5e-2
+# a batch-norm generator's running statistics, card against CPU, of
+# (1 + |value|): after one step at the published epsilon (both statistics
+# updates of a step are forwards of the same parameters, so only float32
+# sums differ), and after three steps with the skip concat's epsilon at
+# 1e-2, as `train_reference` holds the parameters (at 1e-8 the encoder's
+# first Adam steps follow gradients that differ by up to 0.7 of their
+# max-abs between the card and the CPU, and the statistics behind them by
+# 1.2e-3 on an H100 80GB HBM3); what is left is the +-lr Adam noise of
+# gradients at rounding level (the pre-norm conv biases', whose true
+# gradient is 0) and the GCN's choice between near-tied neighbours
+BN_STATS_STEP_TOL = 1e-5
+# measured 1.30e-4 to 1.44e-4 on an H100 80GB HBM3; a step that moves the
+# statistics once instead of twice reads 0.28 (CPU against CPU, the same
+# three steps)
+BN_STATS_TOL = 1e-3
+# K2 under autograd in bfloat16: the backward formula on the plain
+# version's own output (no relu flip possible) against autograd of plain,
+# relative L2; end to end the kernel's y flips relus near zero (3.2e-2 to
+# 4.5e-2 in relative L2 on an H100 80GB HBM3)
+K2_BF16_FORMULA_L2_TOL = 1e-2
 LOG: list = []
 T0 = time.perf_counter()
 
@@ -963,12 +1018,14 @@ def phase_k2_autograd(torch):
         nbytes = (x.numel() + y.numel() + w1.numel() + w2.numel()
                   + c1 + c2) * x.element_size()
         bms, by = bound_ms(nbytes, flops, "float32")
-        # the backward's least time: conv1 recomputed, the wgrad of both
-        # cells, conv2's dgrad, and conv1's dgrad where dx is needed, each
-        # as many flops as its forward, at the float32 peak
+        # the backward's least time: the wgrad of both cells, conv2's
+        # dgrad, and conv1's dgrad where dx is needed, each as many flops
+        # as its forward, at the float32 peak.  The recompute of conv1 in
+        # `double_conv3x3_backward` is the port's own cost, not the
+        # gradient's, and is left out
         conv1 = 2 * 9 * TRAIN_FRAMES * cin * c1 * (s - 2) ** 2
         conv2 = 2 * 9 * TRAIN_FRAMES * c1 * c2 * (s - 4) ** 2
-        bwd_flops = 2 * conv1 + 2 * conv2 + (conv1 if name != "inc" else 0)
+        bwd_flops = conv1 * (2 if name != "inc" else 1) + 2 * conv2
         row.update(forward_ms=fwd, forward_ms_no_grad=fwd_nograd,
                    backward_ms=bwd, plain_forward_ms=plain_fwd,
                    plain_autograd_backward_ms=plain_bwd, pack_ms=pack,
@@ -1022,16 +1079,21 @@ def synthetic_batch(rng, b: int, size: int) -> dict:
     return out
 
 
-def build_trainer(torch, seed, video, device, size=256, grid=None):
+def build_trainer(torch, seed, video, device, size=256, grid=None,
+                  dtype=None, **gen_options):
+    """A seeded generator (`UNetTMO(**gen_options)`) and discriminator and
+    the training step over them in `dtype` (float32 when None)."""
     from uncltmo_tpu_torch import params
     from uncltmo_tpu_torch.models.discriminator import SimpleDiscriminator
     from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
     from uncltmo_tpu_torch.training.state import TrainState
     from uncltmo_tpu_torch.training.train_step import (LossConfig,
                                                        make_train_step)
-    gen = seeded_init_(UNetTMO(gcn_grid=grid or params.GCN_GRID), seed)
+    gen = seeded_init_(UNetTMO(gcn_grid=grid or params.GCN_GRID,
+                               **gen_options), seed)
     disc = seeded_init_(SimpleDiscriminator(input_size=size), seed + 1)
-    step = make_train_step(gen, disc, LossConfig(video=video), device=device)
+    step = make_train_step(gen, disc, LossConfig(video=video), device=device,
+                           compute_dtype=dtype or torch.float32)
     return step, TrainState.create(gen, disc)
 
 
@@ -1242,6 +1304,421 @@ def phase_train_reference(torch):
                     f"differs by {encoder_l2} in relative L2")
 
 
+def phase_k2_autograd_bf16(torch):
+    """`fused_double_conv3x3` under autograd in bfloat16 (the kernel
+    forward, library gradients in bfloat16 backward) against autograd of
+    the plain version in bfloat16, at the training batch (B = 16), timed:
+    the shapes and dtype a bfloat16 training step gives it."""
+    import torch.nn.functional as F
+    from uncltmo_tpu_torch.ops.kernels.double_conv import (
+        double_conv3x3_backward, double_conv3x3_plain, fused_double_conv3x3,
+        pack_double_conv_weights)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for name, cin, c1, c2, s in K2_SHAPES:
+        args = k2_inputs(torch, g, torch.bfloat16, TRAIN_FRAMES, cin, c1, c2,
+                         s, s)
+        need_dx = name != "inc"
+        mine = [a.clone().requires_grad_(i > 0 or need_dx)
+                for i, a in enumerate(args)]
+        ref = [a.clone().requires_grad_(i > 0 or need_dx)
+               for i, a in enumerate(args)]
+        packed = pack_double_conv_weights(*args[1:])
+        y = fused_double_conv3x3(*mine, packed=packed)
+        y_ref = double_conv3x3_plain(*ref)
+        gy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+        wanted = [t for t in mine if t.requires_grad]
+        wanted_ref = [t for t in ref if t.requires_grad]
+        got = torch.autograd.grad(y, wanted, gy, retain_graph=True)
+        want = torch.autograd.grad(y_ref, wanted_ref, gy, retain_graph=True)
+        torch.cuda.synchronize()
+        names = (["dx"] if need_dx else []) + ["dw1", "db1", "dw2", "db2"]
+        y_err = (y.float() - y_ref.float()).abs().max().item()
+        y_rel = y_err / y_ref.float().abs().max().item()
+        def rel_l2(pairs):
+            return {n: ((a.float() - b.float()).norm()
+                        / b.float().norm()).item() for n, a, b in pairs}
+        l2 = rel_l2(zip(names, got, want))
+        formula = double_conv3x3_backward(*args, y_ref.detach(), gy,
+                                          need_dx=need_dx)
+        formula_l2 = rel_l2(zip(names, [t for t in formula if t is not None],
+                                want))
+        if not (y_rel <= K2_TOL["bfloat16"]
+                and all(v <= K2_BF16_GRAD_L2_TOL for v in l2.values())
+                and all(v <= K2_BF16_FORMULA_L2_TOL
+                        for v in formula_l2.values())):
+            raise AssertionError(f"K2 autograd bfloat16 {name}: y {y_rel}, "
+                                 f"gradients (relative L2) {l2}, formula "
+                                 f"{formula_l2}")
+        x, w1, b1, w2, b2 = args
+        with torch.no_grad():
+            def cudnn():
+                F.relu_(F.conv2d(F.relu_(F.conv2d(x, w1, b1)), w2, b2))
+            library = time_ms(cudnn)
+        fwd = time_ms(lambda: fused_double_conv3x3(*mine, packed=packed))
+        bwd = time_ms(lambda: torch.autograd.grad(y, wanted, gy,
+                                                  retain_graph=True))
+        plain_fwd = time_ms(lambda: double_conv3x3_plain(*ref))
+        plain_bwd = time_ms(lambda: torch.autograd.grad(
+            y_ref, wanted_ref, gy, retain_graph=True))
+        conv1 = 2 * 9 * TRAIN_FRAMES * cin * c1 * (s - 2) ** 2
+        conv2 = 2 * 9 * TRAIN_FRAMES * c1 * c2 * (s - 4) ** 2
+        nbytes = (x.numel() + y.numel() + w1.numel() + w2.numel()
+                  + c1 + c2) * x.element_size()
+        bms, by = bound_ms(nbytes, conv1 + conv2, "bfloat16")
+        # as in f32: the gradient's own operations, no recompute of conv1
+        bwd_flops = conv1 * (2 if need_dx else 1) + 2 * conv2
+        row = dict(cell=name, dtype="bfloat16", shape=list(x.shape),
+                   y_max_abs_err=y_err, y_rel_err=y_rel, rel_l2_err=l2,
+                   formula_rel_l2_err=formula_l2,
+                   forward_ms=fwd, backward_ms=bwd,
+                   plain_forward_ms=plain_fwd,
+                   plain_autograd_backward_ms=plain_bwd,
+                   library_forward_ms=library, flops=conv1 + conv2,
+                   bound_ms=bms, bound_by=by, backward_flops=bwd_flops,
+                   backward_bound_ms=bwd_flops / PEAK_FLOPS["bfloat16"]
+                   * 1e3)
+        rows.append(row)
+        emit("k2_autograd", **row)
+        del args, mine, ref, y, y_ref, gy, wanted, wanted_ref, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+class LaunchDtypes:
+    """Records the dtype of every launch of K1 (forward and backward) and
+    of every call of K2's forward kernel and library backward while it is
+    entered, by wrapping the functions that launch them."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from uncltmo_tpu_torch.ops.kernels import _concat_skip_triton as k1
+        from uncltmo_tpu_torch.ops.kernels import double_conv as k2
+        self._saved = []
+        for mod, name, key in ((k1, "launch", "fused_concat_skip"),
+                               (k1, "launch_backward",
+                                "fused_concat_skip_backward"),
+                               (k2, "_launch", "fused_double_conv3x3"),
+                               (k2, "double_conv3x3_backward",
+                                "fused_double_conv3x3_backward_calls")):
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+
+            def wrapped(x, *a, _fn=fn, _key=key, **kw):
+                self.seen.setdefault(_key, set()).add(str(x.dtype))
+                return _fn(x, *a, **kw)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def generator_fake(torch, gen, hdr_btchw, video, dtype):
+    """A deterministic forward of the generator on the step's batch, under
+    autocast for bfloat16: the fake, float32, (B*T, 1, H, W)."""
+    from uncltmo_tpu_torch.models.unet import video_apply
+    ctx = (torch.autocast("cuda", dtype=dtype) if dtype != torch.float32
+           else torch.autocast("cuda", enabled=False))
+    with torch.no_grad(), ctx:
+        x = hdr_btchw.to(dtype)
+        if video:
+            out, _ = video_apply(gen, x, with_features=False)
+        else:
+            out, _ = gen(x.reshape((-1,) + tuple(x.shape[2:])))
+    return out.float().reshape(-1, 1, *out.shape[-2:])
+
+
+def phase_train_bf16(torch, seed, f32_ms):
+    """bfloat16 training (`compute_dtype=torch.bfloat16`: the batch as
+    bfloat16, G's and D's forwards and the losses under autocast, float32
+    parameters and Adam states) for the image and the video generator at
+    the published batch, stages 0-2.  The first step is held against the
+    float32 step from the same state, batch and drop path (losses and the
+    fake's statistics), and a forward's fake against the float32 forward;
+    then step ms by CUDA events beside the float32 phase's, launches per
+    step (all in bfloat16), peak memory and a profile of a stage-0 step.
+    Returns the launch counts."""
+    import numpy as np
+    b, _, size = TRAIN_BATCH
+    g_lr, d_lr = 1e-5, 1.5e-5
+    plan = [("stage0", 0), ("stage0", 0), ("stage0", 0), ("stage1", 1),
+            ("stage2", 2)]
+    total = {}
+    for video in (False, True):
+        path = "video" if video else "image"
+        rng = np.random.default_rng(seed + 10 + int(video))
+        batches = [synthetic_batch(rng, b, size) for _ in range(3)]
+        ref_step, ref_state = build_trainer(torch, seed, video, "cuda",
+                                            size=size)
+        step, state = build_trainer(torch, seed, video, "cuda", size=size,
+                                    dtype=torch.bfloat16)
+        hdr = torch.from_numpy(batches[0]["hdr"]).cuda().permute(
+            0, 1, 4, 2, 3)
+        fake32 = generator_fake(torch, ref_state.gen, hdr, video,
+                                torch.float32)
+        fake16 = generator_fake(torch, state.gen, hdr, video, torch.bfloat16)
+        fake_l2 = ((fake16 - fake32).norm() / fake32.norm()).item()
+        _, ref_logs = ref_step(ref_state, batches[0], torch.Generator(
+            device="cuda").manual_seed(seed), g_lr, d_lr, stage=0)
+        ref_logs = {k: float(v) for k, v in ref_logs.items()}
+        del ref_step, ref_state
+        torch.cuda.empty_cache()
+        per_step = train_per_step(video)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_train_counts()
+        ms, vs_f32 = {}, {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with LaunchDtypes() as dtypes:
+            for i, (tag, stage) in enumerate(plan):
+                before = snapshot(state)
+                n0 = train_counts()
+                start.record()
+                state, logs = step(state, batches[i % 3], torch.Generator(
+                    device="cuda").manual_seed(seed), g_lr, d_lr, stage=stage)
+                end.record()
+                torch.cuda.synchronize()
+                check_step(torch, f"bf16 {path} {tag}", state, logs, before,
+                           False)
+                got = {k: v - n0[k] for k, v in train_counts().items()}
+                if got != per_step:
+                    raise AssertionError(f"train_bf16 {path} {tag}: launches "
+                                         f"{got}, expected {per_step}")
+                if i == 0:
+                    vs_f32 = {k: abs(float(logs[k]) - ref_logs[k])
+                              / max(abs(ref_logs[k]), 1e-30)
+                              for k in ("errD", "errG_d", "errG_struct",
+                                        "fake/min", "fake/max", "fake/mean")}
+                else:
+                    ms.setdefault(tag, []).append(start.elapsed_time(end))
+        counts = train_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if (any(v != {"torch.bfloat16"} for v in dtypes.seen.values())
+                or len(dtypes.seen) != 4):
+            raise AssertionError(f"train_bf16 {path}: launch dtypes "
+                                 f"{dtypes.seen}")
+        if (not fake_l2 <= BF16_FAKE_L2_TOL
+                or not all(v <= BF16_LOG_RTOL for v in vs_f32.values())):
+            raise AssertionError(f"train_bf16 {path}: against float32, fake "
+                                 f"{fake_l2}, logs {vs_f32}")
+        params_f32 = all(p.dtype == torch.float32 for p in
+                         state.gen.parameters()) and all(
+            st["exp_avg"].dtype == torch.float32
+            for st in state.opt_G.state.values())
+        if not params_f32:
+            raise AssertionError(f"train_bf16 {path}: parameters or Adam "
+                                 "states are not float32")
+        profile_call(torch, "bfloat16", lambda: step(
+            state, batches[0], torch.Generator(device="cuda").manual_seed(
+                seed), g_lr, d_lr, stage=0),
+            path=f"train_bf16_{path}_stage0", top=14)
+        emit("train_bf16", generator=path, dtype="bfloat16",
+             batch=list(TRAIN_BATCH), steps=[t for t, _ in plan],
+             step_ms={k: sum(v) / len(v) for k, v in ms.items()},
+             float32_step_ms=f32_ms[path], launches=counts,
+             launches_per_step=per_step,
+             launch_dtypes={k: sorted(v) for k, v in dtypes.seen.items()},
+             peak_memory_gb=peak_gb, fake_rel_l2_vs_float32=fake_l2,
+             logs_rel_err_vs_float32=vs_f32,
+             params_and_adam_float32=params_f32)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del step, state, batches
+        torch.cuda.empty_cache()
+    return total
+
+
+# one forward at the published width of each other generator option:
+# (name, UNetTMO keyword arguments, K2 and K1 launches it must make)
+OPTION_FORWARDS = [
+    ("batch_norm", dict(unet_norm="batch_norm"), 0, 4),
+    ("instance_norm", dict(unet_norm="instance_norm"), 0, 4),
+    ("leakyrelu_square", dict(activation="leakyrelu", con_operator="square"),
+     0, 0),
+    ("no_doubleConvTranspose", dict(double_conv_transpose=False), 0, 4),
+    ("no_dct_zeros", dict(double_conv_transpose=False, padding_mode="zeros"),
+     0, 4),
+    ("up_mode", dict(up_mode=True), 4, 4),
+    ("up_mode_no_dct", dict(up_mode=True, double_conv_transpose=False), 0, 4),
+    ("bilinear", dict(bilinear=True), 4, 4),
+    ("original_unet", dict(con_operator="original_unet"), 4, 0),
+    ("square", dict(con_operator="square"), 4, 0),
+    ("square_root", dict(con_operator="square_root"), 4, 0),
+    ("gamma", dict(con_operator="gamma"), 4, 0),
+    ("manual_d", dict(con_operator="square_and_square_root_manual_d",
+                      n_channels=2), 4, 0),
+]
+# a batch-norm generator: K1 in the decoder's four concats (two forwards
+# and one backward a step), no K2 (every encoder cell has a norm)
+BN_PER_STEP = {"fused_concat_skip": 8, "fused_concat_skip_backward": 4,
+               "fused_double_conv3x3": 0,
+               "fused_double_conv3x3_backward_calls": 0}
+BN_SERVE_LAUNCHES = {"fused_concat_skip": 4, "fused_double_conv3x3": 0}
+
+
+def phase_options(torch, seed):
+    """The generator's other configurations on the card.  A batch-norm
+    generator: three steps at 112 x 112 (B = 2) on the card and on the CPU
+    from one seed and the same drop path, running statistics held to each
+    other; three steps at the published batch on the card (launches: K1
+    in the decoder, no K2, whose cells have a norm), then served from its
+    weights and statistics on a 1080p frame by the card's and the CPU's
+    `InferenceRunner`, PNGs within one level.  Then one forward at the
+    published width of each other option, with the launches of K1 and K2
+    it makes.  Returns the launch counts (all float32)."""
+    import numpy as np
+    from uncltmo_tpu_torch.config import get_model_params
+    from uncltmo_tpu_torch.inference.runner import InferenceRunner
+    from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
+    from uncltmo_tpu_torch.utils.io import write_radiance_hdr
+    g_lr, d_lr = 1e-5, 1.5e-5
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # -- batch norm, card against CPU: one step at the published epsilon,
+    # three with the skip concat's epsilon at 1e-2
+    from uncltmo_tpu_torch import params
+    published = params.EPSILON
+    rows, failed = [], False
+    for eps, n_steps, tol in ((published, 1, BN_STATS_STEP_TOL),
+                              (1e-2, 3, BN_STATS_TOL)):
+        sides = {}
+        params.EPSILON = eps
+        try:
+            for dev in ("cuda", "cpu"):
+                rng = np.random.default_rng(seed + 30)
+                step, state = build_trainer(torch, seed, False, dev,
+                                            size=112, grid=3,
+                                            unet_norm="batch_norm")
+                masks = [torch.ones(4) for _ in range(4 * n_steps)]
+                masks[1][0] = 0.0
+                masks[-2][3] = 0.0
+                it = iter(masks)
+                reset_train_counts()
+                for _ in range(n_steps):
+                    state, logs = step(state, synthetic_batch(rng, 2, 112),
+                                       torch.Generator(), g_lr, d_lr,
+                                       stage=0, drop_masks=it)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    add(train_counts())
+                sides[dev] = ({k: v.detach().cpu() for k, v in
+                               state.gen.state_dict().items()},
+                              {k: float(v) for k, v in logs.items()})
+        finally:
+            params.EPSILON = published
+        (card, logs), (cpu, ref_logs) = sides["cuda"], sides["cpu"]
+        keys = [k for k in cpu if k.endswith(("running_mean",
+                                              "running_var"))]
+        errs = {k: ((card[k] - cpu[k]).abs() / (1 + cpu[k].abs())).max()
+                .item() for k in keys}
+        worst = max(errs, key=errs.get)
+        moved = all(not torch.equal(cpu[k], torch.zeros_like(cpu[k]))
+                    for k in keys if k.endswith("running_mean"))
+        rows.append(dict(
+            epsilon=eps, steps=n_steps, stats_max_rel_err=errs[worst],
+            worst_statistic=worst, tolerance=tol, n_statistics=len(keys),
+            num_batches_tracked=int(card["inc.conv.norm.num_batches_tracked"]),
+            last_step_log_max_rel_err=max(
+                abs(logs[k] - ref_logs[k]) / max(abs(ref_logs[k]), 1e-30)
+                for k in ("errD", "errG_d", "errG_struct", "fake/mean"))))
+        failed |= not (errs[worst] <= tol and moved and len(keys) == 36)
+    emit("options", part="batch_norm_card_vs_cpu", size=112, batch=2,
+         runs=rows)
+    if failed:
+        raise AssertionError(f"options: batch-norm statistics card vs CPU "
+                             f"{rows}")
+
+    # -- batch norm at the published batch on the card, then served
+    b, _, size = TRAIN_BATCH
+    rng = np.random.default_rng(seed + 31)
+    step, state = build_trainer(torch, seed, False, "cuda", size=size,
+                                unet_norm="batch_norm")
+    batches = [synthetic_batch(rng, b, size) for _ in range(3)]
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    reset_train_counts()
+    t0 = time.perf_counter()
+    for i in range(3):
+        before = snapshot(state)
+        n0 = train_counts()
+        state, logs = step(state, batches[i], generator, g_lr, d_lr, stage=0)
+        torch.cuda.synchronize()
+        check_step(torch, f"batch_norm step {i}", state, logs, before, False)
+        got = {k: v - n0[k] for k, v in train_counts().items()}
+        if got != BN_PER_STEP:
+            raise AssertionError(f"options: batch-norm step launches {got}, "
+                                 f"expected {BN_PER_STEP}")
+    steps_ms = (time.perf_counter() - t0) / 3 * 1e3
+    add(train_counts())
+    sd = {k: v.detach().cpu() for k, v in state.gen.state_dict().items()}
+    del step, state, batches
+    torch.cuda.empty_cache()
+    mp = dict(get_model_params("batch_norm"), unet_norm="batch_norm")
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "in")
+        os.makedirs(img_dir)
+        write_radiance_hdr(os.path.join(img_dir, "frame.hdr"),
+                           synthetic_hdr(np.random.default_rng(seed + 32),
+                                         *FRAME_HW))
+        lam = os.path.join(tmp, "lambdas.npy")
+        np.save(lam, {"frame": 40.0})
+        pngs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            runner = InferenceRunner(mp, None, state_dict=sd, device=dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            pngs[dev] = runner.run_on_path(img_dir, os.path.join(tmp, dev),
+                                           lam, scale=1)[0]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                serve_counts = read_counts()
+                add(serve_counts)
+            secs[dev] = time.perf_counter() - t0
+        diff = png_diff(pngs["cuda"], pngs["cpu"])
+    if diff > 1 or serve_counts != BN_SERVE_LAUNCHES:
+        raise AssertionError(f"options: batch-norm 1080p frame card vs CPU "
+                             f"{diff} levels, launches {serve_counts}")
+    emit("options", part="batch_norm_train_and_serve", batch=list(TRAIN_BATCH),
+         steps=3, step_ms_host=steps_ms, launches_per_step=BN_PER_STEP,
+         frame=list(FRAME_HW), png_max_diff_levels=diff,
+         serve_launches=serve_counts, serve_s=secs)
+
+    # -- one forward of each other option at the published width
+    rows = []
+    for name, kw, k2_want, k1_want in OPTION_FORWARDS:
+        model = seeded_init_(UNetTMO(**kw), seed).cuda()
+        x = torch.rand(2, kw.get("n_channels", 1), 256, 256,
+                       generator=torch.Generator().manual_seed(seed)).cuda()
+        reset_counts()
+        with torch.no_grad():
+            out, _ = model(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add(counts)
+        finite = bool(torch.isfinite(out).all())
+        want = {"fused_concat_skip": k1_want, "fused_double_conv3x3": k2_want}
+        if counts != want or not finite or tuple(out.shape) != (2, 1, 256,
+                                                                256):
+            raise AssertionError(f"options {name}: launches {counts} "
+                                 f"(expected {want}), finite {finite}")
+        rows.append({"option": name, "k1_launches": counts[
+            "fused_concat_skip"], "k2_launches": counts[
+            "fused_double_conv3x3"]})
+        del model, x, out
+    emit("options", part="forwards", batch=2, size=256, filters=32,
+         per_forward=rows)
+    return total
+
+
 def trainer_options(out_dir: str, seed: int):
     """The published training options (`scripts/run_imageTMO_train.sh`)
     at batch 8, with one D pre-train epoch and one main epoch."""
@@ -1332,10 +1809,11 @@ def summary_control(torch, seed, rounds: int = 2) -> dict:
 
 def phase_trainer(torch, seed, bare_ms):
     """`GanTrainer` at the published batch (8 x 2 frames of 256 x 256,
-    float32) on `SyntheticDataSource(size=256, n_items=160)`: one D
-    pre-train epoch and one main epoch of 20 steps each, for the image and
-    the video generator.  The kernels' launch counts of the main epoch are
-    20 x a step's plus the four sample grids' forwards (`trainer_want`),
+    float32) on `SyntheticDataSource(size=256)`: one D pre-train epoch and
+    one main epoch, of 20 steps each for the image generator (160 items)
+    and 10 for the video generator (80).  The kernels' launch counts of the
+    main epoch are the steps x a step's plus the four sample grids'
+    forwards (`trainer_want`),
     and 0 in the pre-train epoch; the newest checkpoint loads
     into a fresh trainer bit for bit; `InferenceRunner` serves it on a
     small image.  Returns the launch counts."""
@@ -1346,11 +1824,12 @@ def phase_trainer(torch, seed, bare_ms):
     from uncltmo_tpu_torch.training.trainer import GanTrainer
     from uncltmo_tpu_torch.utils import checkpoint as ckpt
     from uncltmo_tpu_torch.utils.io import read_png, write_radiance_hdr
-    size, n_items = TRAIN_BATCH[2], TRAINER_ITEMS
-    steps = n_items // TRAIN_BATCH[0]
+    size = TRAIN_BATCH[2]
     total = {}
     for video in (False, True):
         path = "video" if video else "image"
+        n_items = TRAINER_VIDEO_ITEMS if video else TRAINER_ITEMS
+        steps = n_items // TRAIN_BATCH[0]
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "run")
             opt = trainer_options(out, seed)
@@ -1718,18 +2197,22 @@ def main(argv=None) -> int:
         paths.append(phase_whole_image(torch, dtypes, args.seed))
         k1b = phase_k1_backward(torch, dtypes)
         k2g = phase_k2_autograd(torch)
+        k2g16 = phase_k2_autograd_bf16(torch)
         train, stage_ms = phase_train(torch, args.seed)
         phase_train_reference(torch)
+        train16 = phase_train_bf16(torch, args.seed, stage_ms)
+        options = phase_options(torch, args.seed)
         trainer = phase_trainer(torch, args.seed, stage_ms)
         tester = phase_tester(torch, args.seed, scenes, scene_lams)
-    train = {k: train[k] + trainer[k] for k in train}
+    train = {k: train[k] + trainer[k] + options.get(k, 0) for k in train}
     # each path was driven with the counts set to 0 just before it and read
-    # just after; the kernels line carries their sum (training and the
-    # Tester are float32)
+    # just after; the kernels line carries their sum (training, the options
+    # and the Tester are float32 but for `train_bf16`)
     launches = {d: {k: sum(p[d][k] for p in paths) for k in paths[0][d]}
                 for d in dtypes}
     for k in launches["float32"]:
         launches["float32"][k] += train[k] + tester[k]
+        launches["bfloat16"][k] += train16[k]
 
     kernels = []
     for name, route, source, replaces, rows in (
@@ -1754,40 +2237,45 @@ def main(argv=None) -> int:
                 "bound_by": max(r, key=lambda x: x["bound_ms"])["bound_by"],
                 "library_ms": (sum(x["library_ms"] for x in r)
                                if "library_ms" in r[0] else None)})
-    # K1's gradient kernel: on the training path only, which is float32
-    # (the bfloat16 variant is checked in the k1_backward phase above)
-    r = k1b["float32"]
-    kernels.append({
-        "name": "fused_concat_skip_backward/float32", "route": "triton",
-        "source": "uncltmo_tpu_torch/ops/kernels/_concat_skip_triton.py",
-        "replaces": "uncltmo_tpu/ops/pallas_kernels.py:221",
-        "launches": train["fused_concat_skip_backward"],
-        "max_abs_err": max(x["max_abs_err"] for x in r),
-        "ms": sum(x["ms"] for x in r),
-        "plain_ms": sum(x["plain_ms"] for x in r),
-        "bound_ms": sum(x["bound_ms"] for x in r),
-        "bound_by": max(r, key=lambda x: x["bound_ms"])["bound_by"],
-        "library_ms": None})
+    # K1's gradient kernel: on the training paths, float32 (`train`,
+    # `trainer`, the options' batch-norm steps) and bfloat16 (`train_bf16`)
+    for dname, counted in (("float32", train), ("bfloat16", train16)):
+        r = k1b[dname]
+        kernels.append({
+            "name": f"fused_concat_skip_backward/{dname}", "route": "triton",
+            "source": "uncltmo_tpu_torch/ops/kernels/_concat_skip_triton.py",
+            "replaces": "uncltmo_tpu/ops/pallas_kernels.py:221",
+            "launches": counted["fused_concat_skip_backward"],
+            "max_abs_err": max(x["max_abs_err"] for x in r),
+            "ms": sum(x["ms"] for x in r),
+            "plain_ms": sum(x["plain_ms"] for x in r),
+            "bound_ms": sum(x["bound_ms"] for x in r),
+            "bound_by": max(r, key=lambda x: x["bound_ms"])["bound_by"],
+            "library_ms": None})
     # K2 under autograd, at the training batch: `ms` is the forward (the
     # kernel, saving for backward), `backward_ms` the library's gradients
-    kernels.append({
-        "name": "fused_double_conv3x3/autograd/float32", "route": "cuda",
-        "source": "uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu",
-        "replaces": "uncltmo_tpu/ops/pallas_kernels.py:108",
-        "launches": train["fused_double_conv3x3"],
-        "max_abs_err": max(x["y_max_abs_err"] for x in k2g),
-        "ms": sum(x["forward_ms"] for x in k2g),
-        "plain_ms": sum(x["plain_forward_ms"] for x in k2g),
-        "bound_ms": sum(x["bound_ms"] for x in k2g),
-        "bound_by": max(k2g, key=lambda x: x["bound_ms"])["bound_by"],
-        "library_ms": sum(x["library_forward_ms"] for x in k2g),
-        "batch": TRAIN_FRAMES,
-        "backward_calls": train["fused_double_conv3x3_backward_calls"],
-        "backward_ms": sum(x["backward_ms"] for x in k2g),
-        "backward_bound_ms": sum(x["backward_bound_ms"] for x in k2g),
-        "plain_autograd_backward_ms": sum(x["plain_autograd_backward_ms"]
-                                          for x in k2g),
-        "pack_ms": sum(x["pack_ms"] for x in k2g)})
+    for dname, counted, rows in (("float32", train, k2g),
+                                 ("bfloat16", train16, k2g16)):
+        row = {
+            "name": f"fused_double_conv3x3/autograd/{dname}", "route": "cuda",
+            "source": "uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu",
+            "replaces": "uncltmo_tpu/ops/pallas_kernels.py:108",
+            "launches": counted["fused_double_conv3x3"],
+            "max_abs_err": max(x["y_max_abs_err"] for x in rows),
+            "ms": sum(x["forward_ms"] for x in rows),
+            "plain_ms": sum(x["plain_forward_ms"] for x in rows),
+            "bound_ms": sum(x["bound_ms"] for x in rows),
+            "bound_by": max(rows, key=lambda x: x["bound_ms"])["bound_by"],
+            "library_ms": sum(x["library_forward_ms"] for x in rows),
+            "batch": TRAIN_FRAMES,
+            "backward_calls": counted["fused_double_conv3x3_backward_calls"],
+            "backward_ms": sum(x["backward_ms"] for x in rows),
+            "backward_bound_ms": sum(x["backward_bound_ms"] for x in rows),
+            "plain_autograd_backward_ms": sum(
+                x["plain_autograd_backward_ms"] for x in rows)}
+        if "pack_ms" in rows[0]:
+            row["pack_ms"] = sum(x["pack_ms"] for x in rows)
+        kernels.append(row)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"log": LOG, "kernels": kernels}, f, indent=1)

@@ -17,9 +17,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # fields that only modules not ported yet read, with their ROADMAP item
 NOT_YET_CONSUMED = {
-    "d_nlayers": "item 8 (the other discriminators)",
-    "num_D": "item 8",
-    "d_fully_connected": "item 8",
     "fid_res_path": "item 9 (FID)",
     "inception_weights": "item 9",
 }

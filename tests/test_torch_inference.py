@@ -179,26 +179,11 @@ def test_run_on_path_pipelined_matches_sequential(tmp_path):
 
 
 def test_unported_paths_name_the_roadmap(tmp_path):
-    """What the port still refuses, by name: the other con_operators,
-    norms and activations, `up_mode` / `bilinear` / single-ConvT
-    generators, `.exr` / `.dng` files."""
-    from uncltmo_tpu_torch.config import options_from_model_params
-    from uncltmo_tpu_torch.models.unet import make_generator
+    """What the port still refuses on the serving path, by name: `.exr` /
+    `.dng` files.  (The other con_operators, norms, activations,
+    `up_mode` / `bilinear` / single-ConvT generators are served now;
+    `tests/test_torch_options.py` holds them against JAX.)"""
     from uncltmo_tpu_torch.utils.io import read_hdr_image
-    mp = get_model_params("m")
-    for con_operator in ("square", "square_root", "original_unet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            UNetTMO(con_operator=con_operator)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetTMO(unet_norm="batch_norm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        UNetTMO(activation="leakyrelu")
-    for key, val in (("up_mode", 1), ("bilinear", 1),
-                     ("g_doubleConvTranspose", 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_generator(options_from_model_params(dict(mp, **{key: val})))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceRunner(dict(mp, **{key: val}), None, device="cpu")
     for ext in (".exr", ".dng"):
         (tmp_path / ("x" + ext)).write_bytes(b"")
         with pytest.raises(NotImplementedError, match="ROADMAP"):

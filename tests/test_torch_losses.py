@@ -338,9 +338,13 @@ def test_make_discriminator_builds_simpleD_and_names_the_rest():
                                         "tail.1.weight"]
     assert disc.tail[1].in_features == 16
     assert isinstance(make_discriminator(), SimpleDiscriminator)
+    # the other variants are built (tests/test_torch_discriminators.py
+    # holds them against JAX); an unknown name is refused by name
     for name in ("dcgan", "original", "patchD", "multiLayerD_simpleD"):
-        with pytest.raises(NotImplementedError, match=name):
-            make_discriminator(tconfig.Options(d_model=name))
+        assert not isinstance(make_discriminator(
+            tconfig.Options(d_model=name)), SimpleDiscriminator)
+    with pytest.raises(ValueError, match="nonsense"):
+        make_discriminator(tconfig.Options(d_model="nonsense"))
 
 
 def test_options_and_loss_config_mirror_the_jax_package():

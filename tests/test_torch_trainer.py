@@ -307,12 +307,10 @@ def test_three_trainer_iterations_match_the_jax_trainer(tmp_path,
     (dict(add_frame=1), ValueError, "add_frame"),
     (dict(final_shape_addition=8), ValueError, "final_shape_addition"),
     (dict(d_model="patchD"), ValueError, "simpleD"),
-    (dict(compute_dtype="bfloat16"), NotImplementedError,
-     "ROADMAP Queue 1 item 8"),
-    (dict(unet_norm="batch_norm"), NotImplementedError,
-     "ROADMAP Queue 1 item 8"),
+    (dict(compute_dtype="float16"), ValueError, "float32 or bfloat16"),
+    (dict(unet_norm="group_norm"), ValueError, "Unsupported norm"),
 ], ids=["dp-batch", "dp-devices", "add_frame", "shape_addition", "patchD",
-        "bfloat16", "batch_norm"])
+        "float16", "unknown_norm"])
 def test_each_refusal_raises_by_name(tmp_path, kw, error, match):
     with pytest.raises(error, match=match):
         GanTrainer(_opt(tmp_path, **kw), device="cpu")

@@ -134,8 +134,8 @@ class Options:
                                        # hardcodes it at every call site,
                                        # `GanTrainer.py:304-318`) or LMCL
                                        # (`GanTrainer.py:441-451`)
-    compute_dtype: str = "float32"     # "bfloat16": refused by the port
-                                       # (ROADMAP Queue 1 item 8)
+    compute_dtype: str = "float32"     # "bfloat16" for fastest training
+                                       # (autocast; params stay float32)
     data_parallel: int = 0             # cards for batch sharding; 0=auto
                                        # (one card in the port), >1 =
                                        # required: refused by the port
@@ -280,6 +280,11 @@ def get_model_params(model_name: str, train_settings_path: str = "none"
             if key in train_settings:
                 model_params["depth" if key == "unet_depth" else key] = \
                     train_settings[key]
+        # the JAX package serves every checkpoint with relu; the settings
+        # of a leaky run name its activation, and the port serves it so
+        # (relu runs read exactly as in the JAX package)
+        if train_settings.get("g_activation", "relu") != "relu":
+            model_params["g_activation"] = train_settings["g_activation"]
     if model_params.get("manual_d_training"):
         model_params["input_dim"] = 2
     return model_params
@@ -295,7 +300,7 @@ def options_from_model_params(mp: dict) -> Options:
         con_operator=str(mp.get("con_operator", "square_and_square_root")),
         filters=int(mp.get("filters", 32)),
         unet_norm=str(mp.get("unet_norm", "none")),
-        g_activation="relu",
+        g_activation=str(mp.get("g_activation", "relu")),
         g_doubleConvTranspose=int(mp.get("g_doubleConvTranspose", 1)),
         up_mode=int(mp.get("up_mode", 0)),
         bilinear=int(mp.get("bilinear", 0)),

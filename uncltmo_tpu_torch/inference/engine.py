@@ -70,8 +70,8 @@ class TileEngine:
 
     Args:
       model: a `UNetTMO`, left as it is: the engine runs a copy of it on
-        `device`, in `eval()` mode, whose parameters (not its buffers) are
-        cast to `dtype` once.
+        `device`, in `eval()` mode and with batch norm's running statistics,
+        whose parameters and running statistics are cast to `dtype` once.
       tile, overlap: tiling config (256 / 64 for the quarter-res protocol).
       chunk: tiles per forward, or None for the JAX engine's policy.
       dtype: compute dtype of the forward; the blend is always float32.
@@ -92,17 +92,24 @@ class TileEngine:
         self.dtype = dtype
         self.model = copy.deepcopy(model).to(self.device).eval()
         if dtype != torch.float32:
-            # params once, as `engine.py:129-155`; the GCN's relative-
-            # position buffer stays float32 for the float32 KNN
+            # every float32 leaf of the JAX engine's variables once
+            # (`engine.py:129-155`): the parameters and batch norm's running
+            # statistics, which the norm reads back as float32; the GCN's
+            # relative-position buffer (no JAX variable) stays float32 for
+            # the float32 KNN
             for p in self.model.parameters():
                 p.data = p.data.to(dtype)
+            for m in self.model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean = m.running_mean.to(dtype)
+                    m.running_var = m.running_var.to(dtype)
         self._plans: dict = {}
 
     def update_variables(self, state_dict) -> None:
         """Copy new weights (a state dict of the model's layout, on any
         device) into the engine's module, each cast to the dtype of the
-        tensor it replaces: parameters to `dtype`, the float32 buffers
-        stay float32 (`engine.py:144-155`)."""
+        tensor it replaces: parameters and running statistics to `dtype`,
+        the other float32 buffers stay float32 (`engine.py:144-155`)."""
         with torch.no_grad():
             self.model.load_state_dict(state_dict, strict=True)
 

@@ -4,16 +4,23 @@ Port of `uncltmo_tpu/losses/adversarial.py` (reference
 `GanTrainer.py:221-451`), function for function.  The naturalness scores
 that rank samples (`info_nce2`) and patches (`pseudo_label_loss`) are taken
 without gradient, on the tensor's device; `argmax`/`argmin` return the first
-index among equal scores, as `jnp.argmax` does.
+index among equal scores, as `jnp.argmax` does.  `contrastive_d_loss` and
+`generator_loss_terms` (`training/train_step.py`) are float32 islands
+(`ops/precision.py`): under bfloat16 autocast the losses still take
+float32 logits and features and compute in float32, as the JAX package
+does; the relativistic loss compares logits that differ by far less than a
+bfloat16 step of their size.
 """
 from __future__ import annotations
 
 import torch
 
 from uncltmo_tpu_torch.metrics.tmqi import batched_naturalness
+from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.windows import contrast_map
 
 
+@float32_island
 def contrastive_d_loss(real_logits: torch.Tensor,
                        fake_logits: torch.Tensor) -> torch.Tensor:
     """Relativistic pairwise cross-entropy (`GanTrainer.py:221-231`): each

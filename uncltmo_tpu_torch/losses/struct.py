@@ -12,8 +12,9 @@ and its gradients come from separable stride-1 convolutions alone:
     std = sqrt(max(box(x^2) - mu^2, 0) + e2)     (e2 = 1e-5)
 
 The expansion cancels large terms scaled by 1/sigma^2, so it is computed in
-float32 whatever the input's dtype, and its box filters want full float32
-products (TF32 off).
+float32 whatever the input's dtype, and with autocast off (a float32 island,
+`ops/precision.py`); its box filters want full float32 products (TF32
+off).
 """
 from __future__ import annotations
 
@@ -22,18 +23,18 @@ from typing import Sequence
 import torch
 
 from uncltmo_tpu_torch import params
+from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.resize import bicubic_half
 from uncltmo_tpu_torch.ops.windows import box_kernel_1d, window_mean
 
 
+@float32_island
 def struct_loss_single(fake: torch.Tensor, hdr_input: torch.Tensor,
                        window_size: int = 5) -> torch.Tensor:
     """One pyramid level (`struct_loss.py:57-87`): (B, C, H, W) pairs -> a
     scalar."""
     e2 = params.EPSILON2
     k = box_kernel_1d(window_size)
-    fake = fake.float()
-    hdr_input = hdr_input.float()
     mu_x = window_mean(fake, k)
     mu_y = window_mean(hdr_input, k)
     s_xx = window_mean(fake * fake, k)

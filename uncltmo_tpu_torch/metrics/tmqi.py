@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from uncltmo_tpu_torch.ops.color import to_gray_709
+from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.resize import haar_half
 from uncltmo_tpu_torch.ops.windows import (block_std_mean, gaussian_kernel_1d,
                                            moving_std_mean, window_mean_auto)
@@ -72,6 +73,7 @@ def _tmqi_window() -> np.ndarray:
     return g / g.sum()
 
 
+@float32_island
 def statistical_naturalness(ldr: torch.Tensor,
                             revised: bool = False) -> torch.Tensor:
     """N of grayscale LDR images in [0, 255]: (..., H, W) -> (...).
@@ -79,7 +81,10 @@ def statistical_naturalness(ldr: torch.Tensor,
     `revised` takes TMQIr's moving-window std with symmetric borders
     (reference `TMQI.py:230-232`) instead of the 11x11 blocks.  Outside the
     beta density's support [0, 1] the value is 0 (scipy's rule); inside,
-    the argument is clipped to [1e-6, 1 - 1e-6]."""
+    the argument is clipped to [1e-6, 1 - 1e-6].  A float32 island
+    (`ops/precision.py`): float32, with autocast off, whatever the caller's
+    compute dtype (the pseudo-label and infoNCE2 losses of a bfloat16
+    training step reach it)."""
     u = ldr.mean(dim=(-2, -1))
     sig = moving_std_mean(ldr, 11) if revised else block_std_mean(ldr, 11)
     x = sig / 64.29

@@ -33,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.resize import bicubic_resize
 
 
@@ -67,18 +68,21 @@ def relative_pos_bias(embed_dim: int, grid_size) -> np.ndarray:
     return (-rel).astype(np.float32)
 
 
+@float32_island
 def dense_knn(nodes: torch.Tensor, k: int, rel_pos: torch.Tensor
               ) -> torch.Tensor:
     """k nearest neighbours of every node, (B, N, k) int64.
 
     nodes: (B, N, C); rel_pos: (N, N) float32.  Distances in float32 on the
-    L2-normalised features, without gradient (`gcn.py:67-88`)."""
+    L2-normalised features, with autocast off (a float32 island,
+    `ops/precision.py`: a bfloat16 distance would reorder neighbours and
+    change the graph), without gradient (`gcn.py:67-88`)."""
     with torch.no_grad():
-        x = nodes.float()
+        x = nodes
         x = x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + 1e-24)
         sq = torch.sum(x * x, dim=-1, keepdim=True)            # (B, N, 1)
         dist = sq - 2.0 * torch.bmm(x, x.transpose(1, 2)) + sq.transpose(1, 2)
-        dist = dist + rel_pos.float()[None]
+        dist = dist + rel_pos[None]
         return torch.topk(-dist, min(k, dist.shape[-1]), dim=-1).indices
 
 

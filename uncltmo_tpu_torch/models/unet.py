@@ -1,9 +1,10 @@
 """The tone-mapping U-Net generator (NCHW), image and video.
 
 Port of `uncltmo_tpu/models/unet.py` (reference `Unet_singleFrame.py` for
-images, `Unet.py` for video), published configuration: depth 4, 32 filters,
-`square_and_square_root`, doubleConvTranspose, relu, no norm, sigmoid, 2x2
-ConvT upsample.  Size flow for a 256 tile (valid convs):
+images, `Unet.py` for video), every option of `UNetTMO`
+(`uncltmo_tpu/models/unet.py:61-117`).  The published configuration: depth
+4, 32 filters, `square_and_square_root`, doubleConvTranspose, relu, no
+norm, sigmoid, 2x2 ConvT upsample.  Size flow for a 256 tile (valid convs):
 
     inc   256 -> 252   (skip s0)          K2
     down0 252 -> 122   (skip s1)          K2
@@ -16,6 +17,13 @@ ConvT upsample.  Size flow for a 256 tile (valid convs):
     up3  126->252 +s0 -> 256              K1
     outc -> sigmoid
 
+Without doubleConvTranspose (and without `up_mode`) every conv is padded
+by one pixel in the model's `padding_mode` and the decoder cells are
+`DoubleConv`s; `up_mode` upsamples by zero insertion and, without
+doubleConvTranspose, pads each conv's output by one edge pixel; `bilinear`
+upsamples by nearest x2 and a 1x1 conv.  Which cells take K1 and K2 is
+said in `models/blocks.py`.
+
 One module serves both: `frame` is the single-frame forward that also
 threads the temporal carry.  The carry holds the first 1/32 of the channels
 at eight positions (after inc, down0..2, the GCN and up0..2: 1, 2, 4, 8, 8,
@@ -26,11 +34,12 @@ loops `frame` over a (B, T, C, H, W) clip.
 
 A training forward is `deterministic=False`: the GCN's drop path is live
 and draws from the caller's `torch.Generator`, fresh for every frame of a
-clip (`uncltmo_tpu/models/unet.py:259-267`), and under autograd `_splice`
-builds new tensors, so the gradient flows through the carry.  Batch-norm
-statistics are not ported: the published configurations have no norm and
-the blocks raise for any other (`stats_G` of the JAX training state has no
-counterpart here).
+clip (`uncltmo_tpu/models/unet.py:259-267`), batch norm normalises by the
+batch and moves its running statistics (`uncltmo_tpu/models/unet.py:
+130-132`: exactly when the forward is not deterministic, whatever
+`.train()` / `.eval()` says), and under autograd `_splice` builds new
+tensors, so the gradient flows through the carry.  `video_apply` moves the
+statistics frame by frame in order, as the JAX scan carries them.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch.nn as nn
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.models import blocks
 from uncltmo_tpu_torch.models.gcn import GCNBlock
+from uncltmo_tpu_torch.ops.precision import no_autocast
 from uncltmo_tpu_torch.ops.preprocess import crop_center_batch
 from uncltmo_tpu_torch.ops.windows import adaptive_avg_pool_1, contrast_map
 
@@ -76,6 +86,8 @@ class UNetTMO(nn.Module):
                  con_operator: str = params.SQUARE_AND_SQUARE_ROOT,
                  filters: int = 32, unet_norm: str = "none",
                  activation: str = "relu", padding_mode: str = "edge",
+                 double_conv_transpose: bool = True, up_mode: bool = False,
+                 bilinear: bool = False,
                  stretch_g: str = "none", gcn_grid: int = params.GCN_GRID,
                  recurrent_ch_ratio: float = params.RECURRENT_CH_RATIO,
                  to_crop: bool = False):
@@ -87,16 +99,23 @@ class UNetTMO(nn.Module):
         self.stretch_g = stretch_g
         self.recurrent_ch_ratio = recurrent_ch_ratio
         self.to_crop = to_crop
+        self.manual_d = con_operator == params.SQUARE_AND_SQUARE_ROOT_MANUAL_D
         f = filters
-        self.inc = blocks.InConv(n_channels, f, unet_norm, activation)
+        # the cells' padding (`uncltmo_tpu/models/unet.py:86-88`)
+        pad = 0 if (double_conv_transpose or up_mode) else 1
+        cell = dict(pad=pad, post_pad_replicate=up_mode and not
+                    double_conv_transpose, padding_mode=padding_mode)
+        self.inc = blocks.InConv(n_channels, f, unet_norm, activation,
+                                 **cell)
         ch = f
         downs = []
         for _ in range(depth - 1):
             downs.append(blocks.Down(blocks.DoubleConv(
-                ch, ch * 2, unet_norm, activation)))
+                ch, ch * 2, unet_norm, activation, **cell)))
             ch *= 2
         downs.append(blocks.Down(blocks.DoubleLastConv(
-            ch, ch, unet_norm, activation)))
+            ch, ch, unet_norm, activation,
+            double_conv_transpose=double_conv_transpose, **cell)))
         self.down_path = nn.ModuleList(downs)
         self.gcn = GCNBlock(ch, grid=gcn_grid)
         skip_ch = [f * 2 ** i for i in range(depth)]
@@ -105,7 +124,8 @@ class UNetTMO(nn.Module):
             out_ch = f if i >= depth - 2 else ch // 2
             ups.append(blocks.Up(ch, skip_ch[depth - 1 - i], out_ch,
                                  con_operator, unet_norm, activation,
-                                 padding_mode))
+                                 padding_mode, double_conv_transpose,
+                                 up_mode, bilinear, pad))
             ch = out_ch
         self.up_path = nn.ModuleList(ups)
         self.outc = blocks.OutConv(ch, output_dim)
@@ -117,9 +137,14 @@ class UNetTMO(nn.Module):
         frame's eight slices, or None (first frame, image mode).
         `deterministic=False` turns the GCN's drop path on, drawn from
         `generator` (or taken from the iterator `drop_masks`, see
-        `gcn.drop_path`).  Returns (x_out, up_x, new_carry)."""
+        `gcn.drop_path`), and puts batch norm in training mode.  Returns
+        (x_out, up_x, new_carry)."""
         r = self.recurrent_ch_ratio
-        next_x = self.inc(x)
+        train = not deterministic
+        # the manual-d operator's weight plane: the input's weight channel
+        # (`uncltmo_tpu/models/unet.py:133-135`)
+        d_weight_mul = x[0, 1, 0, 0] if self.manual_d else None
+        next_x = self.inc(x, train)
         skips = [next_x]
         new_carry = [_rec_slice(next_x, r)]
         for i, layer in enumerate(self.down_path):
@@ -131,7 +156,7 @@ class UNetTMO(nn.Module):
                 # input, and the skip stays as it was without a copy
                 # (below 32 channels the slice is empty)
                 fea = _splice(fea, pool(carry[i]))
-            next_x = cell(fea)
+            next_x = cell(fea, train)
             skips.append(next_x)
             if i < self.depth - 1:
                 new_carry.append(_rec_slice(next_x, r))
@@ -141,10 +166,16 @@ class UNetTMO(nn.Module):
         for i, layer in enumerate(self.up_path):
             if carry is not None:
                 up_x = _splice(up_x, carry[self.depth + i])
-            up_x = layer(up_x, skips[self.depth - (i + 1)])
+            up_x = layer(up_x, skips[self.depth - (i + 1)], d_weight_mul,
+                         train)
             if i < self.depth - 1:
                 new_carry.append(_rec_slice(up_x, r))
-        x_out = blocks.last_layer_fn(self.last_layer)(self.outc(up_x))
+        # the output head in the weights' dtype, float32 under autocast:
+        # the structural loss standardises the fake by local stds of
+        # ~1e-3, below a bfloat16 step of the output (2^-9 at 0.5)
+        with no_autocast():
+            x_out = blocks.last_layer_fn(self.last_layer)(
+                self.outc(up_x.to(self.outc.conv.weight.dtype)))
         if self.stretch_g == "batchMax":
             x_out = x_out / x_out.max()
         elif self.stretch_g == "instanceMinMax":
@@ -205,7 +236,9 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """The reference's initialisation (`utils/model_save_util.py:41-47`):
     xavier-normal with gain sqrt(2) on every conv weight (and on the
     discriminator's linear head, as the JAX package initialises it), zero
-    biases, zero pos_embed; drawn from an explicit `torch.Generator`."""
+    biases, zero pos_embed; drawn from an explicit `torch.Generator`.
+    Batch norm keeps torch's scale 1 and bias 0, as the JAX package's
+    `TorchBatchNorm` initialises them."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -221,13 +254,17 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
 def reference_normal_init_(model: nn.Module, seed: int) -> nn.Module:
     """The reference's other initialisation (`--use_xaviar 0`,
     `utils/model_save_util.py:26-38`): every conv and linear weight drawn
-    from N(0, 0.02^2), the rest left as built.  Batch norm, whose scales the
-    reference draws too, is not ported (ROADMAP Queue 1 item 8)."""
+    from N(0, 0.02^2), batch norm's scales from N(1, 0.02^2) with zero
+    biases (`:32-38`; instance norm has no parameters), the rest left as
+    built."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 nn.init.normal_(m.weight, 0.0, 0.02, generator=g)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.normal_(m.weight, 1.0, 0.02, generator=g)
+                nn.init.zeros_(m.bias)
     return model
 
 
@@ -263,15 +300,13 @@ def make_generator(opt=None, **overrides) -> UNetTMO:
         if int(getattr(opt, "convtranspose_kernel", 2)) != 2:
             raise ValueError("convtranspose_kernel != 2 is not supported "
                              "(published configs use 2)")
-        if not opt.g_doubleConvTranspose or opt.up_mode or opt.bilinear:
-            raise NotImplementedError(
-                "only the published doubleConvTranspose / 2x2-ConvT "
-                "generator is ported (ROADMAP Queue 1 item 8)")
         kw = dict(
             n_channels=opt.input_dim, output_dim=opt.output_dim,
             last_layer=opt.last_layer, depth=opt.unet_depth,
             con_operator=opt.con_operator, filters=opt.filters,
             unet_norm=opt.unet_norm, activation=opt.g_activation,
+            double_conv_transpose=bool(opt.g_doubleConvTranspose),
+            up_mode=bool(opt.up_mode), bilinear=bool(opt.bilinear),
             padding_mode="edge" if opt.padding == "replicate" else opt.padding,
             stretch_g=opt.stretch_g, to_crop=bool(opt.add_frame))
     kw.update(overrides)

@@ -9,7 +9,11 @@ the plain PyTorch version, the weight packing and the ctypes wrapper.
 Dispatch is by the tensor's device alone: CPU tensors take the plain
 version (differentiated by autograd), CUDA tensors go through
 `_DoubleConv3x3`, whose forward launches the kernel (a failed build or
-launch raises) whether or not a gradient is wanted.  The TPU kernel has no
+launch raises) whether or not a gradient is wanted.  Under `torch.autocast`
+(bfloat16 training) the input and the float32 master weights are cast to
+the autocast dtype here, before either version, because autocast casts no
+input of a custom `autograd.Function`; the casts are differentiable, so
+the weight and bias gradients come back to the float32 parameters.  The TPU kernel has no
 VJP and the JAX training step never reaches it, so the gradient is no port
 of a kernel: `double_conv3x3_backward` recomputes the intermediate with
 `F.conv2d` and calls the library's convolution gradients.
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from uncltmo_tpu_torch.ops.kernels.build import load_library
+from uncltmo_tpu_torch.ops.precision import autocast_dtype
 
 _SOURCE = "double_conv3x3.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,11 +88,12 @@ def pack_double_conv_weights(w1: torch.Tensor, b1: torch.Tensor,
                             b2.detach().contiguous())
 
 
-def weights_key(*params: torch.Tensor):
+def weights_key(*params: torch.Tensor, dtype: torch.dtype | None = None):
     """What a cached packing depends on: a reload, a cast, a move or an
-    in-place update of any parameter changes the key."""
+    in-place update of any parameter changes the key, and so does the dtype
+    the weights are packed in (`dtype`, None for their own)."""
     return tuple((p.data_ptr(), p.dtype, p.device, p._version)
-                 for p in params)
+                 for p in params) + (dtype,)
 
 
 def double_conv3x3_plain(x, w1, b1, w2, b2):
@@ -140,7 +146,12 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     (counted in `fused_double_conv3x3.launches`), differentiable through
     `double_conv3x3_backward` (`fused_double_conv3x3.backward_calls`).
     `packed` is `pack_double_conv_weights` of the same four tensors; without
-    it the weights are packed in this call."""
+    it the weights are packed in this call; under autocast it must be packed
+    in the autocast dtype.  Under autocast the function computes in the
+    autocast dtype (see the module docstring)."""
+    dtype = autocast_dtype(x.device.type)
+    if dtype is not None:
+        x, w1, b1, w2, b2 = (t.to(dtype) for t in (x, w1, b1, w2, b2))
     if x.device.type == "cpu":
         return double_conv3x3_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -151,6 +162,9 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"fused_double_conv3x3: {name} is {t.dtype} on "
                              f"{t.device}, x is {x.dtype} on {x.device}")
+    if packed is not None and packed.w1.dtype != x.dtype:
+        raise ValueError(f"fused_double_conv3x3: weights packed in "
+                         f"{packed.w1.dtype}, x is {x.dtype}")
     b, cin, h, w = x.shape
     c1, c2 = w1.shape[0], w2.shape[0]
     if (tuple(w1.shape) != (c1, cin, 3, 3) or tuple(w2.shape) != (c2, c1, 3, 3)

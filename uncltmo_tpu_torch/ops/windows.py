@@ -8,7 +8,13 @@ the window), the moving-window and the block std means.
 Every window is an outer product of a 1-D kernel, so a window statistic is
 two depthwise valid 1-D convolutions (`F.conv2d` with `groups=C`).  With
 TF32 off these are full float32 products, the JAX package's
-`Precision.HIGHEST`.
+`Precision.HIGHEST`.  The entry points that autocast code reaches
+(`window_stats`, `contrast_map`, `adaptive_avg_pool_1`) are float32
+islands (`ops/precision.py`): under bfloat16 autocast they take their
+inputs as float32 and return float32.  `window_mean`, `window_var` and
+`window_mean_auto` follow their inputs' dtype; every caller of theirs is
+an island already (the structural loss, TMQI's naturalness) or works in
+float64 (TMQI's structural fidelity).
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from uncltmo_tpu_torch.ops.precision import float32_island
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +105,7 @@ def window_var(x: torch.Tensor, k1d) -> torch.Tensor:
     return window_mean(x * x, k1d) - mu * mu
 
 
+@float32_island
 def window_stats(x: torch.Tensor, y: torch.Tensor, k1d):
     """(mu_x, mu_y, var_x, var_y, cov_xy) under a separable window (valid)."""
     mu_x = window_mean(x, k1d)
@@ -107,6 +116,7 @@ def window_stats(x: torch.Tensor, y: torch.Tensor, k1d):
     return mu_x, mu_y, var_x, var_y, cov
 
 
+@float32_island
 def contrast_map(x: torch.Tensor, size: int = 11, sigma: float = 1.5
                  ) -> torch.Tensor:
     """11x11 Gaussian local-variance map (the reference's ContrastExtracter):
@@ -115,8 +125,11 @@ def contrast_map(x: torch.Tensor, size: int = 11, sigma: float = 1.5
     return window_var(x, fspecial_gauss_1d(size, sigma))
 
 
+@float32_island
 def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:
-    """Global average pool NCHW -> (N, C, 1, 1)."""
+    """Global average pool NCHW -> (N, C, 1, 1), float32: the pooled
+    contrastive features enter `k |a - b|` with k = 1e3 in the losses, where
+    a bfloat16 rounding of the mean would flip signs."""
     return x.mean(dim=(2, 3), keepdim=True)
 
 

@@ -12,9 +12,14 @@ EPSILON2 = 1e-05  # reference `utils/params.py:49`
 # `utils/params.py:61`).
 BETA1 = 0.5
 
-# The published skip-connection concat operator (reference
-# `utils/params.py:78-83`); the other five are not ported yet.
+# The skip-connection concat operators (reference `utils/params.py:78-83`);
+# the published one is `square_and_square_root`.
+ORIGINAL_UNET = "original_unet"
+SQUARE = "square"
+SQUARE_ROOT = "square_root"
 SQUARE_AND_SQUARE_ROOT = "square_and_square_root"
+GAMMA = "gamma"
+SQUARE_AND_SQUARE_ROOT_MANUAL_D = "square_and_square_root_manual_d"
 
 # Rec.601 luma weights (reference `utils/hdr_image_util.py:72-82`).
 REC601 = (0.299, 0.587, 0.114)

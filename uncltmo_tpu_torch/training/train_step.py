@@ -10,12 +10,26 @@ What the reference computed on the host mid-step -- the naturalness of
 every patch for the pseudo-label loss and of every image for infoNCE2
 (`GanTrainer.py:340-409`) -- runs on the tensors' device.
 
-The step works in float32 and NCHW; batches arrive in the JAX package's
-layout.  Batch-norm statistics (`stats_G`) are not ported (no published
-configuration has a norm).
+The step works in NCHW; batches arrive in the JAX package's layout.  In
+float32 (the published configuration) it computes in float32 throughout.
+With `compute_dtype=torch.bfloat16` the batch goes to the device as
+bfloat16 (as the JAX trainer's `_put` does) and G's and D's forwards and
+the loss terms run under `torch.autocast`: convolutions and matmuls in
+bfloat16, the kernels K1 and K2 in bfloat16, the float32 islands of
+`ops/precision.py` in float32.  Parameters, gradients and both Adam states
+stay float32 and no loss scaling is needed.  (The JAX package keeps float32
+activations and rounds only the matmul operands, `jax_default_matmul_
+precision`; here the activations between ops are bfloat16 as well.)
+
+A batch-norm generator's running statistics move as in the JAX step
+(`uncltmo_tpu/training/train_step.py:155-165,195,216-237`): the D phase's
+generator forward updates them, and the G phase's forward starts from that
+update and updates them again, two momentum updates a step, with no
+gradient through them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Tuple
 
@@ -26,6 +40,7 @@ from uncltmo_tpu_torch.losses import adversarial as adv
 from uncltmo_tpu_torch.losses.struct import struct_loss_pyramid
 from uncltmo_tpu_torch.models.discriminator import SimpleDiscriminator
 from uncltmo_tpu_torch.models.unet import UNetTMO, video_apply
+from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.training.state import TrainState, apply_updates
 
 
@@ -49,12 +64,14 @@ def _flatten_frames(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
+@float32_island
 def generator_loss_terms(stage: int, cfg: LossConfig, fake, fea_fake,
                          d_fake_bp, d_real_pos_bp, d_fea_fake,
                          d_fea_real_pos, d_fea_real_neg, d_fea_input,
                          ldr_pos) -> torch.Tensor:
     """The stage-dependent adversarial / contrastive G loss
-    (`GanTrainer.py:301-332`)."""
+    (`GanTrainer.py:301-332`), in float32 (a float32 island,
+    `ops/precision.py`)."""
     gd = cfg.loss_g_d_factor
     clt = cfg.cl_loss_type
     if stage == 0:
@@ -104,10 +121,12 @@ def _top_level(name: str, depth: int) -> str:
 
 
 def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
-                    device=None) -> Callable:
+                    device=None, compute_dtype: torch.dtype = torch.float32
+                    ) -> Callable:
     """Build train_step(state, batch, generator, g_lr, d_lr, stage,
     pretrain) -> (state, logs) for a generator and a discriminator, which
-    are moved to `device` here (the CUDA card when None).
+    are moved to `device` here (the CUDA card when None).  `compute_dtype`
+    float32 or bfloat16 (see the module docstring).
 
     batch (the image and video pipelines both deliver 2 frames per sample,
     `ProcessedDatasetFolder.py:57`), numpy arrays or tensors:
@@ -123,10 +142,16 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
     g_tops = [_top_level(n, gen.depth) for n, _ in gen.named_parameters()]
 
     def to_device(x) -> torch.Tensor:
-        """(B, T, H, W, C) -> float32 (B, T, C, H, W) on the device."""
+        """(B, T, H, W, C) -> (B, T, C, H, W) in the compute dtype on the
+        device."""
         t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                            else x, dtype=torch.float32)
+                            else x, dtype=compute_dtype)
         return t.to(device).permute(0, 1, 4, 2, 3)
+
+    def autocast():
+        if compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=compute_dtype)
 
     def g_forward(hdr, generator, drop_masks):
         """A training forward of the generator: (fake (B*T, 1, H, W),
@@ -159,15 +184,19 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
 
         # ---- D update (`GanTrainer.py:202-261`)
         if cfg.train_with_D:
-            if pretrain:
-                fake_for_d = hdr_luma
-            else:
-                with torch.no_grad():
-                    fake_for_d, _ = g_forward(hdr, generator, drop_masks)
-            d_weight = cfg.adv_weight if stage == 0 else cfg.adv_weight * 1e-6
-            d_real_pre, _ = disc(ldr_pos)
-            d_fake_pre, _ = disc(fake_for_d)
-            err_d = d_weight * adv.contrastive_d_loss(d_real_pre, d_fake_pre)
+            with autocast():
+                if pretrain:
+                    fake_for_d = hdr_luma
+                else:
+                    # also moves batch norm's running statistics
+                    with torch.no_grad():
+                        fake_for_d, _ = g_forward(hdr, generator, drop_masks)
+                d_weight = (cfg.adv_weight if stage == 0
+                            else cfg.adv_weight * 1e-6)
+                d_real_pre, _ = disc(ldr_pos)
+                d_fake_pre, _ = disc(fake_for_d)
+                err_d = d_weight * adv.contrastive_d_loss(d_real_pre,
+                                                          d_fake_pre)
             grads = torch.autograd.grad(err_d, d_params)
             for p, g in zip(d_params, grads):
                 p.grad = g
@@ -184,22 +213,23 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
             return state, logs
 
         # ---- G update against the UPDATED D (`GanTrainer.py:263-291`)
-        fake, fea_fake = g_forward(hdr, generator, drop_masks)
-        err_g = fake.new_zeros(())
-        if cfg.train_with_D:
-            d_fake_bp, d_fea_fake = disc(fake)
-            with torch.no_grad():     # constants of the G loss
-                d_real_pos_bp, d_fea_real_pos = disc(ldr_pos)
-                _, d_fea_real_neg = disc(ldr_neg)
-                _, d_fea_input = disc(hdr_luma)
-            err_g = generator_loss_terms(
-                stage, cfg, fake, fea_fake, d_fake_bp, d_real_pos_bp,
-                d_fea_fake, d_fea_real_pos, d_fea_real_neg, d_fea_input,
-                ldr_pos)
-        err_struct = fake.new_zeros(())
-        if cfg.struct_loss_factor:
-            err_struct = cfg.struct_loss_factor * struct_loss_pyramid(
-                fake, hdr_luma, cfg.pyramid_weights, cfg.ssim_window_size)
+        with autocast():
+            fake, fea_fake = g_forward(hdr, generator, drop_masks)
+            err_g = fake.new_zeros((), dtype=torch.float32)
+            if cfg.train_with_D:
+                d_fake_bp, d_fea_fake = disc(fake)
+                with torch.no_grad():     # constants of the G loss
+                    d_real_pos_bp, d_fea_real_pos = disc(ldr_pos)
+                    _, d_fea_real_neg = disc(ldr_neg)
+                    _, d_fea_input = disc(hdr_luma)
+                err_g = generator_loss_terms(
+                    stage, cfg, fake, fea_fake, d_fake_bp, d_real_pos_bp,
+                    d_fea_fake, d_fea_real_pos, d_fea_real_neg, d_fea_input,
+                    ldr_pos)
+            err_struct = fake.new_zeros((), dtype=torch.float32)
+            if cfg.struct_loss_factor:
+                err_struct = cfg.struct_loss_factor * struct_loss_pyramid(
+                    fake, hdr_luma, cfg.pyramid_weights, cfg.ssim_window_size)
         # gradients for G's parameters alone: D's `.grad`s keep the D
         # loss's, and nothing of the G loss reaches D's optimizer
         err = err_g + err_struct

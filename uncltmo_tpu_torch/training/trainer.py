@@ -22,7 +22,12 @@ What the port decides for itself:
   is.
 * The logs stay 0-dim device tensors on the training thread; the host
   worker reads them (one transfer per record) and writes the JSONL.
-* Float32 training turns TF32 off for cuDNN and matmul.
+* Training turns TF32 off for cuDNN and matmul, in float32 and in
+  bfloat16 (whose float32 islands want full float32 products).
+* `--compute_dtype bfloat16` hands the batch over as bfloat16 (as the JAX
+  trainer's `_put` does) and runs the step under autocast
+  (`training/train_step.py`); parameters, Adam states and checkpoints stay
+  float32.
 * Whatever another thread reads is a copy taken on the training thread,
   because the state is updated in place: the checkpoint a host copy, the
   sample grid's weights a clone on the step's device.  The host worker
@@ -33,7 +38,7 @@ What the port decides for itself:
   reads the live weights; it copies them into its engine's own module.
 
 Not ported yet, each refused by name: more than one card (ROADMAP Queue 1
-item 7), bfloat16 training and batch norm (item 8), FID (item 9).
+item 7), FID (item 9).
 """
 from __future__ import annotations
 
@@ -117,19 +122,17 @@ class GanTrainer:
                 f"GAN training requires d_model='simpleD' (got "
                 f"{opt.d_model!r}); other variants exist for "
                 "checkpoint/CLI compatibility only")
-        if opt.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={opt.compute_dtype!r}: the port trains in "
-                "float32 only (ROADMAP Queue 1 item 8)")
-        if opt.unet_norm == "batch_norm" or opt.d_norm == "batch_norm":
-            raise NotImplementedError(
-                "batch_norm training is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if opt.compute_dtype not in dtypes:
+            raise ValueError(f"compute_dtype={opt.compute_dtype!r}: "
+                             "float32 or bfloat16")
+        self.compute_dtype = dtypes[opt.compute_dtype]
 
         gen = make_generator(opt, **gen_overrides)
         disc = make_discriminator(opt, **disc_overrides)
-        # xavier gain sqrt(2) (`model_save_util.py:41-47`), or the
-        # reference's N(0, 0.02) under --use_xaviar 0 (`:26-38`)
+        # xavier gain sqrt(2) (`model_save_util.py:41-47`; batch norm at
+        # scale 1, bias 0), or the reference's N(0, 0.02) under
+        # --use_xaviar 0 (`:26-38`; batch-norm scales N(1, 0.02))
         seeded_init_(gen, opt.manual_seed)
         seeded_init_(disc, opt.manual_seed + 1)
         if not int(opt.use_xaviar):
@@ -145,10 +148,11 @@ class GanTrainer:
             video=video,
             train_with_D=bool(opt.train_with_D),
             cl_loss_type=str(opt.cl_loss_type))
-        disable_tf32(self.device)           # float32 training
+        disable_tf32(self.device)
         # moves both modules to the device, then Adam over them there
         self.train_step = make_train_step(gen, disc, self.cfg,
-                                          device=self.device)
+                                          device=self.device,
+                                          compute_dtype=self.compute_dtype)
         self.state = TrainState.create(gen, disc)
         # the sample grid's generator, on the step's device; touched on the
         # host worker only
@@ -242,11 +246,12 @@ class GanTrainer:
             size=self.input_size)
 
     def _put(self, batch):
-        """Host batch -> tensors on the step's device.  On the card: pinned,
+        """Host batch -> tensors on the step's device, in the compute dtype
+        (a bfloat16 batch crosses in half the bytes).  On the card: pinned,
         copied on the copy stream, and handed over once that copy is done
         (the pinned buffers may go then)."""
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.compute_dtype) for k, v in batch.items()}
         if self._copy_stream is None:
             return host
         compute = torch.cuda.current_stream(self.device)
