@@ -14,7 +14,8 @@ and in bfloat16, the training loop around it
 (`training.trainer.GanTrainer`) and its evaluation
 (`training.tester.Tester`), the generator's other configurations (a
 batch-norm generator trained and served, one forward of every other
-option), and holds each hand-written kernel against its plain PyTorch
+option), the trainer's final assessment with its FID and the offline
+metric CLI, and holds each hand-written kernel against its plain PyTorch
 version on the card.
 One JSON line per phase:
 
@@ -87,7 +88,18 @@ One JSON line per phase:
     (launches: K1 only) and that generator served on a 1080p frame by the
     card's and the CPU's runner (PNGs within one level); one forward at
     the published width of every other option with its K1 / K2 launches;
-18. the kernels line (launches summed over all paths; K2 under autograd
+18. assessment: `GanTrainer.run_final_assessment` of an image-G trainer
+    on 16 synthetic 540x960 HDR inputs (15 `.hdr`, one ZIP / HALF `.exr`)
+    rendered at 1/2 size, with the FID against 16 real PNGs on seeded
+    Inception weights (the published ones are not in the repository):
+    16 PNGs, K1 and K2 4 launches a render, the FID stored under the
+    model's name, the card's activations against the CPU extractor's and
+    the FID of each, the FID's seconds by stage (decode + resample on the
+    host, the extractor on the card, sqrtm on the host); `compute_metrics`
+    tmqi over 4 pairs on the card against the CPU and btmqi over the
+    renders; BTMQI's features of a 1080p render of the video phase, card
+    vs CPU, with the entropy bins that differ, and its ms a frame;
+19. the kernels line (launches summed over all paths; K2 under autograd
     is an entry of its own per dtype, with its backward's bound, and so
     is K1's backward), the nvidia-smi line, and `{"ok": true, ...}`
     last.
@@ -103,6 +115,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -598,8 +611,10 @@ def carry_cost(torch, dname, runner) -> dict:
 def phase_video(torch, dtypes, seed, scenes):
     """Two synthetic scenes, written into `scenes` (the tester phase reads
     them again), through `run_on_video_path` with `scene_batch` 1 and 2; a
-    small scene on the card against the CPU runner.  Returns the launch
-    counts and the scenes' lambdas."""
+    small scene on the card against the CPU runner.  The first float32
+    1080p render is copied beside `scenes` as `VIDEO_RENDER` (the
+    assessment phase scores it).  Returns the launch counts and the
+    scenes' lambdas."""
     import numpy as np
     from uncltmo_tpu_torch.config import get_model_params
     from uncltmo_tpu_torch.inference.runner import (InferenceRunner,
@@ -672,6 +687,9 @@ def phase_video(torch, dtypes, seed, scenes):
             profile_call(torch, dname, lambda: run_scenes([0]),
                          path="video_scene_batch_1")
             shapes = [read_png(p).shape for p in outs[1] + outs[2]]
+            if dname == "float32":
+                shutil.copy(outs[1][0], os.path.join(
+                    os.path.dirname(scenes), VIDEO_RENDER))
             diff = max(png_diff(a, b) for a, b in zip(outs[1], outs[2]))
             # 4 launches a frame step and chunk; one chunk a 1080p plan
             expected = {1: 4 * VIDEO_FRAMES * 2, 2: 4 * VIDEO_FRAMES}
@@ -2161,6 +2179,334 @@ def phase_tester(torch, seed, scenes, scene_lams):
     return total
 
 
+# the final assessment: 16 HDR inputs (one a ZIP / HALF OpenEXR file) at
+# 540 x 960, rendered at 1/2 size, and 16 real PNGs of that size
+ASSESS_IMAGES = 16
+ASSESS_HW = (540, 960)
+ASSESS_SCALE = 2
+ASSESS_LAUNCHES = 4           # K1 and K2 a render: one forward of its tiles
+VIDEO_RENDER = "video_render_1080p.png"   # written by the video phase
+FID_BATCH = 20                # the FID loader's batch
+EXTRACTOR_TOL = 1e-4          # card vs CPU activations, of their max-abs
+FID_RTOL = 1e-3               # FID of the card's vs the CPU's activations
+BTMQI_TOL = 5e-5              # 1080p features, card vs CPU (golden's 5e-5)
+
+
+def write_exr_zip_half(path: str, rgb) -> None:
+    """float RGB (H, W, 3) -> a scanline OpenEXR file of HALF samples, ZIP
+    compressed (16 lines a chunk), from the file layout with struct and
+    zlib: each line holds the B, G and R samples in turn; a chunk is the
+    lines' bytes split into even and odd halves, delta-coded (+128), and
+    deflated."""
+    import struct
+    import zlib
+    import numpy as np
+
+    def attr(name, kind, value):
+        return (name + b"\0" + kind + b"\0" + struct.pack("<i", len(value))
+                + value)
+
+    h, w = rgb.shape[:2]
+    chlist = b"".join(c + b"\0" + struct.pack("<iB3xii", 1, 0, 1, 1)
+                      for c in (b"B", b"G", b"R")) + b"\0"
+    box = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    head = (struct.pack("<iI", 20000630, 2)
+            + attr(b"channels", b"chlist", chlist)
+            + attr(b"compression", b"compression", b"\3")
+            + attr(b"dataWindow", b"box2i", box)
+            + attr(b"displayWindow", b"box2i", box)
+            + attr(b"lineOrder", b"lineOrder", b"\0")
+            + attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+            + attr(b"screenWindowCenter", b"v2f", struct.pack("<2f", 0, 0))
+            + attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+            + b"\0")
+    half = np.asarray(rgb, np.float32).astype("<f2")
+    chunks = []
+    for y in range(0, h, 16):
+        raw = np.ascontiguousarray(
+            half[y:y + 16, :, ::-1].transpose(0, 2, 1)).tobytes()
+        b = np.frombuffer(raw, np.uint8)
+        t = np.concatenate([b[0::2], b[1::2]]).astype(np.int16)
+        t[1:] = (t[1:] - t[:-1] + 128) & 0xFF
+        data = zlib.compress(t.astype(np.uint8).tobytes())
+        if len(data) >= len(raw):
+            data = raw
+        chunks.append(struct.pack("<ii", y, len(data)) + data)
+    offsets, pos = [], len(head) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    with open(path, "wb") as f:
+        f.write(head + struct.pack(f"<{len(chunks)}Q", *offsets)
+                + b"".join(chunks))
+
+
+def seeded_inception_weights(torch, path: str, seed: int) -> None:
+    """A torchvision-named InceptionV3 state dict through Mixed_6e, drawn
+    from `seed` (He-scaled convs, batch-norm statistics away from (0, 1)),
+    saved as `.pth`: the published weights are not in the repository."""
+    from uncltmo_tpu_torch.metrics.inception import InceptionTrunk768
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    with torch.device("meta"):               # shapes only, no init
+        shapes = InceptionTrunk768().state_dict()
+    for k, v in shapes.items():
+        if not k.endswith(".weight"):
+            continue
+        p, (o, i, kh, kw) = k[:-len(".weight")], v.shape
+        sd[p + ".conv.weight"] = (torch.randn(v.shape, generator=g)
+                                  * (2.0 / (i * kh * kw)) ** 0.5)
+        sd[p + ".bn.weight"] = 1.0 + 0.05 * torch.randn(o, generator=g)
+        sd[p + ".bn.bias"] = 0.05 * torch.randn(o, generator=g)
+        sd[p + ".bn.running_mean"] = 0.05 * torch.randn(o, generator=g)
+        sd[p + ".bn.running_var"] = 0.5 + torch.rand(o, generator=g)
+    torch.save(sd, path)
+
+
+def same_json(a, b, tol: float) -> bool:
+    """Two metric JSONs equal in structure, numbers within `tol` of each
+    other (NaN meets NaN)."""
+    import math
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_json(a[k], b[k], tol)
+                                            for k in b)
+    if isinstance(b, float):
+        return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= tol
+    return a == b
+
+
+def phase_assessment(torch, seed, video_png: str) -> dict:
+    """`GanTrainer.run_final_assessment` of an image-G trainer on the card:
+    16 synthetic 540x960 HDR inputs (one a ZIP / HALF `.exr`) rendered at
+    1/2 size, and the FID of the renders against 16 real PNGs with seeded
+    Inception weights, merged into `fid_res_path`.  Held: 16 PNGs, 4
+    launches of K1 and K2 a render, the FID finite, >= 0 and stored under
+    the model's name (the tail catches and prints a failure, so a missing
+    entry fails here); the FID recomputed from the card's activations,
+    which match the CPU extractor's within EXTRACTOR_TOL of their
+    max-abs, and the FID of the CPU's activations within FID_RTOL.
+    Then `compute_metrics` on the card (tmqi of 4 inputs against their
+    real-side PNGs, finite and within TMQI_TOL of the same on the CPU;
+    btmqi over the renders) and BTMQI's features of the
+    video phase's 1080p render, card vs CPU, with the entropy bins that
+    differ.  Returns the launch counts."""
+    import contextlib
+    import io
+    import numpy as np
+    import scipy.linalg
+    from uncltmo_tpu_torch.cli import compute_metrics
+    from uncltmo_tpu_torch.data.pipeline import SyntheticDataSource
+    from uncltmo_tpu_torch.inference import runner as runner_mod
+    from uncltmo_tpu_torch.metrics import btmqi as btmqi_mod
+    from uncltmo_tpu_torch.metrics import fid, inception
+    from uncltmo_tpu_torch.training.trainer import GanTrainer
+    from uncltmo_tpu_torch.utils.io import (read_png, write_png,
+                                            write_radiance_hdr)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 60)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs, real = os.path.join(tmp, "in"), os.path.join(tmp, "real")
+        os.makedirs(inputs)
+        os.makedirs(real)
+        lams = {}
+        for i in range(ASSESS_IMAGES):
+            name = f"a{i:02d}"
+            hdr = synthetic_hdr(rng, *ASSESS_HW)
+            if i == 0:
+                write_exr_zip_half(os.path.join(inputs, name + ".exr"), hdr)
+            else:
+                write_radiance_hdr(os.path.join(inputs, name + ".hdr"), hdr)
+            lams[name] = float(rng.uniform(100, 1000))
+            # the real side: a log tone map of the input at the renders'
+            # size (2x2 means), named by the input's stem
+            h, w = (n // ASSESS_SCALE for n in ASSESS_HW)
+            ldr = np.log1p(hdr) / np.log1p(hdr.max()) * 255.0
+            ldr = ldr.reshape(h, ASSESS_SCALE, w, ASSESS_SCALE, 3).mean(
+                axis=(1, 3))
+            write_png(os.path.join(real, name + ".png"),
+                      np.clip(ldr, 0, 255).astype(np.uint8))
+        lam = os.path.join(tmp, "lambdas.npy")
+        np.save(lam, lams)
+        weights = os.path.join(tmp, "inception.pth")
+        seeded_inception_weights(torch, weights, seed)
+        opt = trainer_options(os.path.join(tmp, "run"), seed)
+        opt.fid_real_path, opt.inception_weights = real, weights
+        trainer = GanTrainer(opt, source=SyntheticDataSource(
+            size=TRAIN_BATCH[2], n_items=TRAIN_BATCH[0]), device="cuda")
+        setup_s = time.perf_counter() - t_phase
+        # the tail's stages, timed; the extractor's batches and activations
+        # recorded for the CPU comparison
+        clock = StageClock(torch)
+        batches = []
+        saved = (fid.load_fid_image, inception.make_inception_extractor,
+                 scipy.linalg.sqrtm, runner_mod.InferenceRunner.run_on_path)
+
+        def make_extractor(*args, **kwargs):
+            timed = clock.wrap("extractor", saved[1](*args, **kwargs))
+
+            def recorded(batch):
+                acts = timed(batch)
+                batches.append((batch, acts))
+                return acts
+            return recorded
+
+        fid.load_fid_image = clock.wrap("decode_resample", saved[0])
+        inception.make_inception_extractor = make_extractor
+        scipy.linalg.sqrtm = clock.wrap("sqrtm", saved[2])
+        runner_mod.InferenceRunner.run_on_path = clock.wrap("render",
+                                                            saved[3])
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            outs = trainer.run_final_assessment(inputs, lam,
+                                                scale=ASSESS_SCALE)
+            torch.cuda.synchronize()
+            assess_s = time.perf_counter() - t0
+        finally:
+            (fid.load_fid_image, inception.make_inception_extractor,
+             scipy.linalg.sqrtm, runner_mod.InferenceRunner.run_on_path) = \
+                saved
+        counts = read_counts()
+        shapes = {read_png(p).shape for p in outs}
+        want_hw = tuple(n // ASSESS_SCALE for n in ASSESS_HW)
+        want = ASSESS_LAUNCHES * ASSESS_IMAGES
+        if (len(outs) != ASSESS_IMAGES or shapes != {want_hw + (3,)}
+                or any(v != want for v in counts.values())):
+            raise AssertionError(f"assessment: {len(outs)} PNGs of {shapes}"
+                                 f", launches {counts} (expected {want})")
+        res_path = os.path.join(opt.output_dir, opt.fid_res_path + ".npy")
+        stored = (np.load(res_path, allow_pickle=True)[()]
+                  if os.path.exists(res_path) else {})
+        fid_val = stored.get(opt.result_dir_prefix)
+        if fid_val is None or not np.isfinite(fid_val) or fid_val < 0:
+            raise AssertionError(f"assessment: FID {fid_val} stored in "
+                                 f"{res_path} ({sorted(stored)})")
+        # the card's activations against the CPU extractor's, and the FID
+        # of each (real side first, then the fake side)
+        n_real = len(os.listdir(real))
+        card = np.concatenate([a for _, a in batches])
+        t0 = time.perf_counter()
+        cpu_ext = saved[1](weights, device="cpu")
+        cpu = np.concatenate([cpu_ext(b) for b, _ in batches])
+        cpu_extractor_s = time.perf_counter() - t0
+        scale = float(np.abs(cpu).max())
+        act_err = float(np.abs(card - cpu).max()) / scale
+        act_err4 = float(np.abs(card[:4] - cpu[:4]).max()) / scale
+
+        def fid_of(acts):
+            vecs = fid.activations_to_patch_vectors(acts)
+            return fid.frechet_distance(
+                *fid.activation_statistics(vecs[:n_real * 64]),
+                *fid.activation_statistics(vecs[n_real * 64:]))
+
+        fid_card, fid_cpu = fid_of(card), fid_of(cpu)
+        fid_err = abs(fid_card - fid_cpu) / abs(fid_cpu)
+        # the extractor alone at the loader's batch, CUDA events
+        ext = saved[1](weights, device="cuda")
+        batch20 = np.concatenate([b for b, _ in batches])[:FID_BATCH]
+        extractor_ms_20 = time_ms(lambda: ext(batch20), iters=5, warmup=2)
+        if not (len(card) == 2 * ASSESS_IMAGES and act_err <= EXTRACTOR_TOL
+                and abs(fid_card - fid_val) <= 1e-9 * fid_val
+                and fid_err <= FID_RTOL):
+            raise AssertionError(
+                f"assessment: {len(card)} activations, card vs CPU "
+                f"{act_err} of max-abs; FID stored {fid_val}, from the "
+                f"card's activations {fid_card}, the CPU's {fid_cpu}")
+        # compute_metrics on the card: TMQI of 4 inputs (the .exr among
+        # them) against their real-side tone maps (an untrained G's renders
+        # anti-correlate with their inputs, which makes Q NaN) at half
+        # their size, against the same on the CPU, after one pair that
+        # meets cuDNN's first calls at these shapes; BTMQI over the renders
+        pairs, warm = os.path.join(tmp, "pairs"), os.path.join(tmp, "warm")
+        os.makedirs(pairs)
+        os.makedirs(warm)
+        for i, n in enumerate(sorted(os.listdir(inputs))[:5]):
+            os.symlink(os.path.join(inputs, n),
+                       os.path.join(warm if i == 4 else pairs, n))
+        render_dir = os.path.dirname(outs[0])
+        js = {}
+        cm_s = {}
+        for tag, cmd in (
+                ("tmqi_warm", ["tmqi", "--hdr_dir", warm, "--ldr_dir",
+                               real, "--device", "cuda"]),
+                ("tmqi", ["tmqi", "--hdr_dir", pairs, "--ldr_dir", real,
+                          "--device", "cuda"]),
+                ("tmqi_cpu", ["tmqi", "--hdr_dir", pairs, "--ldr_dir", real,
+                              "--device", "cpu"]),
+                ("btmqi", ["btmqi", "--ldr_dir", render_dir, "--device",
+                           "cuda"])):
+            path = os.path.join(tmp, tag + ".json")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                compute_metrics.main(cmd + ["--output", path])
+            torch.cuda.synchronize()
+            cm_s[tag] = time.perf_counter() - t0
+            with open(path) as f:
+                js[tag] = json.load(f)
+        btmqi_scores = list(js["btmqi"].values())
+        if (len(js["tmqi"]["per_image"]) != 4
+                or not np.isfinite(js["tmqi"]["mean_Q"])
+                or not same_json(js["tmqi"], js["tmqi_cpu"], TMQI_TOL)
+                or len(btmqi_scores) != ASSESS_IMAGES
+                or not np.all(np.isfinite(btmqi_scores))):
+            raise AssertionError(f"assessment: compute_metrics tmqi "
+                                 f"{js['tmqi']} (CPU {js['tmqi_cpu']}), "
+                                 f"btmqi {js['btmqi']}")
+        # BTMQI of a 1080p render, card vs CPU, and the entropy bins that
+        # differ between the two smoothings
+        im = read_png(video_png)
+        _, f_card = btmqi_mod.btmqi(im, device="cuda")
+        _, f_cpu = btmqi_mod.btmqi(im, device="cpu")
+        gray = torch.from_numpy(np.ascontiguousarray(
+            (im.astype(np.float32) / 255.0)
+            @ np.asarray(btmqi_mod.P.REC709, np.float32)))
+        k = btmqi_mod.fspecial_gauss_1d(11, 1.5)
+        mus = [btmqi_mod._smoothed_mean(gray.to(d), k).clamp(0, 1).cpu()
+               for d in ("cuda", "cpu")]
+        flips = sum(int(((mus[0] ** (2.0 ** e)) * 4095).int().ne(
+            ((mus[1] ** (2.0 ** e)) * 4095).int()).sum()) for e in range(5))
+        g_card = gray.cuda()
+        btmqi_ms = time_ms(lambda: btmqi_mod.btmqi_features(g_card),
+                           iters=5, warmup=1)
+        b_err = float(np.abs(f_card - f_cpu).max())
+        rec = dict(
+            renders=len(outs), render_shape=list(want_hw) + [3],
+            inputs=dict(hdr=ASSESS_IMAGES - 1, exr_zip_half=1,
+                        hw=list(ASSESS_HW), scale=ASSESS_SCALE),
+            launches=counts, expected_launches=want, fid=fid_val,
+            fid_from_card_activations=fid_card,
+            fid_from_cpu_activations=fid_cpu, fid_rel_err_cuda_vs_cpu=fid_err,
+            activation_max_err_of_max_abs=act_err,
+            activation_max_err_of_max_abs_first4=act_err4,
+            activation_max_abs=scale, final_assessment_s=assess_s,
+            fid_decode_resample_s=clock.seconds.get("decode_resample", 0.0),
+            fid_extractor_calls=len(batches),
+            fid_extractor_ms_per_call=(clock.seconds["extractor"]
+                                       / len(batches) * 1e3),
+            fid_extractor_batch=len(batches[0][0]),
+            extractor_ms_batch20=extractor_ms_20,
+            fid_sqrtm_s=clock.seconds.get("sqrtm", 0.0),
+            render_s=clock.seconds.get("render", 0.0),
+            cpu_extractor_s=cpu_extractor_s,
+            tmqi_ms_per_pair=cm_s["tmqi"] / 4 * 1e3,
+            tmqi_first_pair_ms=cm_s["tmqi_warm"] * 1e3,
+            tmqi_cpu_ms_per_pair=cm_s["tmqi_cpu"] / 4 * 1e3,
+            tmqi_mean_q=js["tmqi"]["mean_Q"],
+            btmqi_cli_ms_per_render=cm_s["btmqi"] / ASSESS_IMAGES * 1e3,
+            btmqi_ms_per_1080p_frame=btmqi_ms,
+            btmqi_max_err_cuda_vs_cpu=b_err,
+            btmqi_flipped_bins_cuda_vs_cpu=flips, setup_s=setup_s,
+            phase_s=time.perf_counter() - t_phase)
+        emit("assessment", **rec)
+        if not b_err <= BTMQI_TOL:
+            raise AssertionError(f"assessment: BTMQI 1080p features card vs "
+                                 f"CPU {b_err} ({flips} bins differ)")
+        del trainer, ext
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2204,14 +2550,16 @@ def main(argv=None) -> int:
         options = phase_options(torch, args.seed)
         trainer = phase_trainer(torch, args.seed, stage_ms)
         tester = phase_tester(torch, args.seed, scenes, scene_lams)
+        assessment = phase_assessment(torch, args.seed,
+                                      os.path.join(shared, VIDEO_RENDER))
     train = {k: train[k] + trainer[k] + options.get(k, 0) for k in train}
     # each path was driven with the counts set to 0 just before it and read
-    # just after; the kernels line carries their sum (training, the options
-    # and the Tester are float32 but for `train_bf16`)
+    # just after; the kernels line carries their sum (training, the options,
+    # the Tester and the final assessment are float32 but for `train_bf16`)
     launches = {d: {k: sum(p[d][k] for p in paths) for k in paths[0][d]}
                 for d in dtypes}
     for k in launches["float32"]:
-        launches["float32"][k] += train[k] + tester[k]
+        launches["float32"][k] += train[k] + tester[k] + assessment[k]
         launches["bfloat16"][k] += train16[k]
 
     kernels = []

@@ -179,12 +179,13 @@ def test_run_on_path_pipelined_matches_sequential(tmp_path):
 
 
 def test_unported_paths_name_the_roadmap(tmp_path):
-    """What the port still refuses on the serving path, by name: `.exr` /
-    `.dng` files.  (The other con_operators, norms, activations,
-    `up_mode` / `bilinear` / single-ConvT generators are served now;
-    `tests/test_torch_options.py` holds them against JAX.)"""
+    """What the port still refuses on the serving path, by name: `.dng`
+    files.  (`.exr` files are read now, `tests/test_torch_exr.py`; the
+    other con_operators, norms, activations, `up_mode` / `bilinear` /
+    single-ConvT generators are served, `tests/test_torch_options.py`
+    holds them against JAX.)"""
     from uncltmo_tpu_torch.utils.io import read_hdr_image
-    for ext in (".exr", ".dng"):
+    for ext in (".dng",):
         (tmp_path / ("x" + ext)).write_bytes(b"")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             read_hdr_image(str(tmp_path / ("x" + ext)))

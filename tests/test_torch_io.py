@@ -97,8 +97,9 @@ def test_bilinear_downscale_matches_cv2():
 
 def test_directory_listing_follows_the_jax_rule(tmp_path):
     """Which files of a directory are HDR input: the JAX package's tuple,
-    matched with its case.  `.exr` is listed by both (the port then refuses
-    to decode it, by name); `.HDR` and other files are listed by neither."""
+    matched with its case.  `.exr` and `.dng` are listed by both (the port
+    decodes `.exr` and refuses `.dng` by name); `.HDR` and other files are
+    listed by neither."""
     from uncltmo_tpu.utils import io as jio
     from uncltmo_tpu_torch.utils import io as tio
     assert tio.HDR_EXTENSIONS == jio.HDR_EXTENSIONS
@@ -111,10 +112,7 @@ def test_directory_listing_follows_the_jax_rule(tmp_path):
         "a.npy", "b.hdr", "c.exr", "f.dng"]
 
 
-def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
-    """A directory with an `.exr` file is an error that names the ROADMAP,
-    not a silently shorter output; `x.HDR` is skipped, as the JAX runner
-    skips it."""
+def _runner_and_lambdas(tmp_path):
     from uncltmo_tpu_torch.config import get_model_params
     from uncltmo_tpu_torch.inference.runner import InferenceRunner
     from uncltmo_tpu_torch.models.unet import UNetTMO
@@ -122,25 +120,111 @@ def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
     runner = InferenceRunner(dict(get_model_params("m"), filters=8), None,
                              state_dict=UNetTMO(filters=8).state_dict(),
                              device="cpu")
+    np.save(tmp_path / "lams.npy", {"x": 100.0, "y": 100.0})
+    return runner, str(tmp_path / "lams.npy")
+
+
+def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
+    """An `.exr` file in a compression the port does not decode (PIZ) is an
+    error that names the compression and the ROADMAP, not a silently
+    shorter output, in a directory and in a scene; `x.HDR` is skipped, as
+    the JAX runner skips it."""
+    from test_torch_exr import write_undecoded_exr
+    runner, lam = _runner_and_lambdas(tmp_path)
     im = _hdr_image(5, 40, 50)
+    planes = {c: im[..., i].astype(np.float16) for i, c in enumerate("RGB")}
     up = tmp_path / "upper"
     up.mkdir()
     write_radiance_hdr(str(up / "x.HDR"), im)
-    np.save(tmp_path / "lams.npy", {"x": 100.0, "y": 100.0})
-    lam = str(tmp_path / "lams.npy")
     assert runner.run_on_path(str(up), str(tmp_path / "o"), lam,
                               scale=1) == []
     exr = tmp_path / "exr"
     exr.mkdir()
-    (exr / "y.exr").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+    write_undecoded_exr(str(exr / "y.exr"), planes, "PIZ")
+    with pytest.raises(NotImplementedError,
+                       match="PIZ compression.*ROADMAP Queue 3"):
         runner.run_on_path(str(exr), str(tmp_path / "o"), lam, scale=1)
     scenes = tmp_path / "scenes"
     (scenes / "y").mkdir(parents=True)
-    (scenes / "y" / "000.exr").write_bytes(b"")
+    write_undecoded_exr(str(scenes / "y" / "000.exr"), planes, "PIZ")
     (scenes / "y" / "001.HDR").write_bytes(b"")
+    with pytest.raises(NotImplementedError,
+                       match="PIZ compression.*ROADMAP Queue 3"):
+        runner.run_on_video_path(str(scenes), str(tmp_path / "o"), lam)
+
+
+def test_runner_reads_exr_and_refuses_dng(tmp_path):
+    """A directory with a ZIP `.exr` file is read (the port's OpenEXR
+    reader, `tests/test_torch_exr.py`); one with a `.dng` file, or a scene
+    with one, is an error that names the ROADMAP."""
+    from test_torch_exr import write_exr
+    runner, lam = _runner_and_lambdas(tmp_path)
+    im = _hdr_image(5, 40, 50)
+    exr = tmp_path / "exr"
+    exr.mkdir()
+    write_exr(str(exr / "y.exr"),
+              {c: im[..., i] for i, c in enumerate("RGB")}, "ZIP")
+    outs = runner.run_on_path(str(exr), str(tmp_path / "o"), lam, scale=1)
+    assert [os.path.basename(p) for p in outs] == ["y_UnCLTMO.png"]
+    assert read_png(outs[0]).shape == (40, 50, 3)
+    dng = tmp_path / "dng"
+    dng.mkdir()
+    (dng / "y.dng").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
+        runner.run_on_path(str(dng), str(tmp_path / "o"), lam, scale=1)
+    scenes = tmp_path / "scenes"
+    (scenes / "y").mkdir(parents=True)
+    (scenes / "y" / "000.dng").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
         runner.run_on_video_path(str(scenes), str(tmp_path / "o"), lam)
+
+
+def _unfiltered_png(path, im):
+    """uint8 (H, W, 2) or (H, W, 4) as an unfiltered gray + alpha or RGBA
+    PNG, the layout the port's own decoder reads."""
+    import struct
+    import zlib
+    h, w, ch = im.shape
+    rows = np.zeros((h, 1 + w * ch), np.uint8)
+    rows[:, 1:] = im.reshape(h, w * ch)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                           {2: 4, 4: 6}[ch], 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes())))
+        f.write(chunk(b"IEND", b""))
+    return path
+
+
+def test_read_ldr_image_drops_alpha_of_gray_and_colour_pngs(tmp_path):
+    """Gray + alpha and RGBA PNGs, unfiltered (the port's own decoder) and
+    written by PIL (filtered rows: a library decodes them), against the JAX
+    package's `read_ldr_image` on the same files: the same samples, alpha
+    dropped.  Gray + alpha comes back as the (H, W) gray plane, as a gray
+    file does; the JAX reader's imageio keeps it as (H, W, 2), whose first
+    plane is compared."""
+    from PIL import Image
+    from uncltmo_tpu.utils import io as jio
+    from uncltmo_tpu_torch.utils import io as tio
+    rng = np.random.default_rng(6)
+    for ch, mode in ((2, "LA"), (4, "RGBA")):
+        im = rng.integers(0, 256, (5, 7, ch), dtype=np.uint8)
+        own = _unfiltered_png(str(tmp_path / f"own{ch}.png"), im)
+        assert tio.read_png(own).shape == im.shape
+        lib = str(tmp_path / f"lib{ch}.png")
+        Image.fromarray(im, mode).save(lib)
+        for path in (own, lib):
+            got = tio.read_ldr_image(path)
+            ref = jio.read_ldr_image(path)
+            if ref.ndim == 3 and ref.shape[-1] == 2:
+                ref = ref[..., 0]
+            assert got.dtype == np.float32
+            assert got.shape == ((5, 7) if ch == 2 else (5, 7, 3))
+            np.testing.assert_array_equal(got, ref, err_msg=path)
 
 
 def _port_sources():

@@ -245,15 +245,16 @@ def test_prepare_lambdas_modes_write_the_jax_clis_files(tmp_path, capsys):
 
 
 def test_mean_hist_refuses_by_name_without_a_reader(tmp_path, monkeypatch):
-    """A file the port's PNG reader does not take needs imageio or cv2;
-    without both, the refusal names the ROADMAP item.  An empty directory
-    is refused before a NaN histogram is saved."""
+    """A file the port's PNG reader does not take needs imageio or cv2, as
+    the JAX reader does; without both, the refusal says so.  An empty
+    directory is refused before a NaN histogram is saved."""
     d = tmp_path / "ldr"
     d.mkdir()
     cv2.imwrite(str(d / "a.jpg"), np.full((8, 8, 3), 90, np.uint8))
     for name in ("imageio", "imageio.v2", "cv2"):
         monkeypatch.setitem(sys.modules, name, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="need imageio or cv2, as the JAX reader does"):
         tcli.main(["--mode", "mean_hist", "--input_dir", str(d),
                    "--output", str(tmp_path / "h.npy")])
     (tmp_path / "none").mkdir()

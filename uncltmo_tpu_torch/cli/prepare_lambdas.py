@@ -29,7 +29,8 @@ import numpy as np
 
 from uncltmo_tpu_torch import params as P
 from uncltmo_tpu_torch.ops.lambda_est import fit_lambda, fit_lambda_de
-from uncltmo_tpu_torch.utils.io import list_hdr_names, read_hdr_image, read_png
+from uncltmo_tpu_torch.utils.io import (list_hdr_names, read_hdr_image,
+                                        read_ldr_image)
 
 
 def _gray_of(path: str) -> np.ndarray:
@@ -38,46 +39,6 @@ def _gray_of(path: str) -> np.ndarray:
     if gray.min() < 0:
         gray = gray - gray.min()
     return gray / max(gray.max(), 1e-12)
-
-
-def _read_with_library(path: str) -> np.ndarray:
-    """An LDR file decoded by imageio, else cv2 (as RGB); without either,
-    a refusal by name."""
-    try:
-        import imageio.v2 as imageio
-        return np.asarray(imageio.imread(path))
-    except ImportError:
-        pass
-    try:
-        import cv2
-    except ImportError:
-        raise NotImplementedError(
-            f"{path}: the port reads 8-bit PNG files written without row "
-            "filters; other LDR files need imageio or cv2, which do not "
-            "import here (ROADMAP Queue 1 item 9)") from None
-    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-    if bgr is None:
-        raise IOError(f"cv2 could not decode {path}")
-    return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-
-
-def read_ldr_image(path: str) -> np.ndarray:
-    """An LDR image as float32 in [0, 1], RGB or gray, alpha dropped (the
-    JAX package's `utils/io.read_ldr_image`).  A PNG that the port's own
-    reader takes is read by it; anything else by a library."""
-    im = None
-    if path.lower().endswith(".png"):
-        try:
-            im = read_png(path)
-        except (OSError, ValueError):
-            pass                     # filtered rows, 16 bits, a palette
-    if im is None:
-        im = _read_with_library(path)
-    scale = 255.0 if im.dtype != np.uint16 else 65535.0
-    im = im.astype(np.float32) / scale
-    if im.ndim == 3 and im.shape[-1] == 4:
-        im = im[..., :3]
-    return im
 
 
 def mode_lambdas(args, scene_mode: bool = False) -> None:

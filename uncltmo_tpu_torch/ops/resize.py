@@ -9,6 +9,12 @@ step between the levels of the structural loss's pyramid: at that scale the
 Keys kernel is the constant 4-tap filter [-3, 19, 19, -3] / 32 on
 edge-clamped taps, a separable stride-2 convolution.  `haar_half`
 (`:47-56`) is TMQI's pyramid step, a 2x2 mean with stride 2.
+
+`pil_bicubic_resize_u8` is PIL's antialiased bicubic resample of uint8
+images (`Image.resize(..., BICUBIC)`, libImaging `Resample.c`), which the
+FID protocol resizes with (`uncltmo_tpu/metrics/fid.py:46-54`): written
+here on the host in integer arithmetic and bit-exact, because PIL is not
+a dependency of the port.
 """
 from __future__ import annotations
 
@@ -88,3 +94,88 @@ def haar_half(x: torch.Tensor) -> torch.Tensor:
     c = x.shape[1]
     kern = torch.full((c, 1, 2, 2), 0.25, dtype=x.dtype, device=x.device)
     return F.conv2d(x, kern, stride=2, groups=c)
+
+
+# PIL's fixed point: 8-bit samples times coefficients of 22 fraction bits
+_PIL_PRECISION_BITS = 22
+
+
+def _pil_bicubic_filter(x: np.ndarray) -> np.ndarray:
+    """PIL's bicubic kernel (a = -0.5), its expressions in its order."""
+    x = np.abs(x)
+    near = ((-0.5 + 2.0) * x - (-0.5 + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * -0.5
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+@functools.lru_cache(maxsize=16)
+def _pil_coeffs(n_in: int, n_out: int) -> tuple:
+    """PIL's fixed-point taps (`precompute_coeffs` + `normalize_coeffs_8bpc`):
+    support 2 x max(n_in / n_out, 1), each output's taps normalised in
+    double, then scaled by 2^22 and rounded half away from zero.  Returns
+    (index, coefficient), both (n_out, taps) int64; a tap past an output's
+    window has coefficient 0 (and a clamped index)."""
+    scale = float(n_in) / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    taps = int(np.ceil(support)) * 2 + 1
+    index = np.zeros((n_out, taps), np.int64)
+    coef = np.zeros((n_out, taps), np.int64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in)
+        w = _pil_bicubic_filter(
+            (np.arange(xmin, xmax, dtype=np.float64) - center + 0.5)
+            * (1.0 / filterscale))
+        ww = np.cumsum(w)[-1] if w.size else 0.0     # summed in order
+        if ww != 0.0:
+            w = w / ww
+        k = w * (1 << _PIL_PRECISION_BITS)
+        coef[xx, :w.size] = np.trunc(np.where(k < 0, k - 0.5, k + 0.5))
+        index[xx] = np.minimum(xmin + np.arange(taps), n_in - 1)
+    return index, coef
+
+
+def _pil_pass(x: np.ndarray, taps: tuple, axis: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resample along `axis` (0 or 1) of (H, W, C)
+    uint8: the sum of samples x coefficients from 2^21 in integers,
+    shifted by 22 bits and clipped to uint8."""
+    index, coef = taps
+    acc = np.full(x.shape[:axis] + (index.shape[0],) + x.shape[axis + 1:],
+                  1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    shape = (-1, 1, 1) if axis == 0 else (1, -1, 1)
+    for t in range(index.shape[1]):
+        acc += (np.take(x, index[:, t], axis=axis).astype(np.int64)
+                * coef[:, t].reshape(shape))
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_bicubic_resize_u8(im: np.ndarray, out_w: int,
+                          out_h: int) -> np.ndarray:
+    """PIL's `Image.resize((out_w, out_h), BICUBIC)` of a uint8 image:
+    (H, W) for mode L, (H, W, 3) RGB, (H, W, 4) RGBA.  Horizontal pass
+    first, then vertical, each to uint8, a pass skipped where its size
+    does not change.  RGBA is resampled premultiplied (PIL's RGBa) and
+    un-premultiplied after, as PIL does; at the same size it is a copy.
+    Returns a C-contiguous array."""
+    im = np.asarray(im, np.uint8)
+    if im.shape[:2] == (out_h, out_w):
+        return im.copy()
+    x = im[..., None] if im.ndim == 2 else im
+    rgba = x.shape[-1] == 4
+    if rgba:                         # RGBA -> RGBa: MULDIV255 of each colour
+        a = x[..., 3:].astype(np.uint32)
+        t = x[..., :3].astype(np.uint32) * a + 128
+        x = np.concatenate([((t >> 8) + t) >> 8, a], -1).astype(np.uint8)
+    if out_w != x.shape[1]:
+        x = _pil_pass(x, _pil_coeffs(x.shape[1], out_w), axis=1)
+    if out_h != x.shape[0]:
+        x = _pil_pass(x, _pil_coeffs(x.shape[0], out_h), axis=0)
+    if rgba:                         # RGBa -> RGBA: 255 c / a, truncated
+        a = x[..., 3:].astype(np.uint32)
+        c = x[..., :3].astype(np.uint32)
+        keep = (a == 0) | (a == 255)
+        un = np.minimum(255 * c // np.maximum(a, 1), 255)
+        x = np.concatenate([np.where(keep, c, un), a], -1).astype(np.uint8)
+    return x[..., 0] if im.ndim == 2 else x

@@ -37,8 +37,8 @@ What the port decides for itself:
   the training thread inside the summary, so nothing changes G while it
   reads the live weights; it copies them into its engine's own module.
 
-Not ported yet, each refused by name: more than one card (ROADMAP Queue 1
-item 7), FID (item 9).
+Not ported yet, refused by name: more than one card (ROADMAP Queue 1
+item 7).
 """
 from __future__ import annotations
 
@@ -502,8 +502,10 @@ class GanTrainer:
     def run_final_assessment(self, input_images_path: str,
                              f_factor_path: str, scale: int = 4):
         """Post-training renders of a directory through `InferenceRunner`,
-        from a copy of the generator (`GanTrainer.save_data_for_assessment`,
-        `GanTrainer.py:546-580`).  FID is not ported yet."""
+        from a copy of the generator, and the optional FID of the renders
+        against `fid_real_path` (`GanTrainer.save_data_for_assessment`,
+        `GanTrainer.py:546-580`), the Inception trunk on the trainer's
+        device."""
         from uncltmo_tpu_torch.inference.runner import InferenceRunner
         model_params = get_model_params(
             self.opt.result_dir_prefix or "model",
@@ -517,8 +519,31 @@ class GanTrainer:
         outs = runner.run_on_path(input_images_path, out_dir, f_factor_path,
                                   scale=scale)
         if self.opt.fid_real_path and os.path.isdir(self.opt.fid_real_path):
-            print("FID skipped: NotImplementedError: FID is not ported yet "
-                  "(ROADMAP Queue 1 item 9)")
+            try:
+                from uncltmo_tpu_torch.metrics.fid import (
+                    calculate_fid_given_paths)
+                weights = self.opt.inception_weights
+                fid = calculate_fid_given_paths(
+                    [self.opt.fid_real_path, out_dir],
+                    weights_path=None if weights == "none" else weights,
+                    device=self.device)
+                # merged into the shared results dict by model name, as the
+                # reference does (`GanTrainer.py:574-580`)
+                res_path = self.opt.fid_res_path
+                if not os.path.isabs(res_path):
+                    res_path = os.path.join(self.opt.output_dir, res_path)
+                if not res_path.endswith(".npy"):
+                    res_path += ".npy"
+                data = {}
+                if os.path.exists(res_path):
+                    data = np.load(res_path, allow_pickle=True)[()]
+                data[model_params["model_name"]] = fid
+                np.save(res_path, data)
+            except Exception as e:
+                # FID is an optional report after training has completed:
+                # a bad weights path or an empty directory must not end
+                # the run (the JAX trainer prints the same line)
+                print(f"FID skipped: {type(e).__name__}: {e}")
         return outs
 
     def load_checkpoint(self):
