@@ -64,7 +64,16 @@ One JSON line per phase:
     trainer bit for bit and served by `InferenceRunner` from its .pth on a
     small image (`summary_control`, not run here, times the summaries);
     the video generator's epochs have 10 steps;
-14. tester: `training.tester.Tester` for the image and the video
+14. data_parallel: the training step on two ranks of
+    `torch.distributed` (NCCL over two cards where there are two, else
+    gloo with both on card 0), 4 clips a rank of the published batch,
+    against the one-process step from the same state, batch and drop path
+    (image G stages 0-2 and stage 0 at epsilon 1e-2, video G stage 0),
+    beside the one-process step against itself; the ranks' digests equal,
+    every rank's K1 / K1 backward / K2 launches, step ms a rank, peak
+    memory; `TileEngine(devices=[d0, d1])` on a 1080p frame and a 4-frame
+    scene (also `batchMax`) against the one-device engine;
+15. tester: `training.tester.Tester` for the image and the video
     generator on the video phase's 1080p files, float32, as the training
     CLIs build it: a lambda fitted on the card at construction (held
     against the CPU fit), one warm and one counted `save_images_for_model`
@@ -72,23 +81,24 @@ One JSON line per phase:
     render's TMQI against the CPU's, the Horn-Schunck flow and the warp
     error against the CPU's on a small crop, the flow backend (torch, on
     the card), launch counts, peak memory;
-15. k2_autograd in bfloat16 (B = 16, timed): K2's Function against
+16. k2_autograd in bfloat16 (B = 16, timed): K2's Function against
     autograd of the plain version in bfloat16, the backward formula on the
     plain output and the end-to-end gradients;
-16. train_bf16: the image and the video generator at the published batch
+17. train_bf16: the image and the video generator at the published batch
     in bfloat16 (`compute_dtype=torch.bfloat16`, autocast), stages 0-2:
     the first step against the float32 step from the same state, batch
     and drop path (losses, the fake's statistics, a forward's fake in
     relative L2), step ms beside the float32 `train` phase's, launches a
     step (every launch's dtype recorded: all bfloat16), peak memory, a
     profile of a stage-0 step;
-17. options: a batch-norm generator's running statistics after one step
+18. options: a batch-norm generator's running statistics after one step
     (published epsilon) and three (epsilon 1e-2) on the card against the
     CPU at 112 x 112; three batch-norm steps at the published batch
     (launches: K1 only) and that generator served on a 1080p frame by the
-    card's and the CPU's runner (PNGs within one level); one forward at
+    card's runner and on a small frame by the card's and the CPU's (PNGs
+    within one level); one forward at
     the published width of every other option with its K1 / K2 launches;
-18. assessment: `GanTrainer.run_final_assessment` of an image-G trainer
+19. assessment: `GanTrainer.run_final_assessment` of an image-G trainer
     on 16 synthetic 540x960 HDR inputs (15 `.hdr`, one ZIP / HALF `.exr`)
     rendered at 1/2 size, with the FID against 16 real PNGs on seeded
     Inception weights (the published ones are not in the repository):
@@ -99,7 +109,7 @@ One JSON line per phase:
     tmqi over 4 pairs on the card against the CPU and btmqi over the
     renders; BTMQI's features of a 1080p render of the video phase, card
     vs CPU, with the entropy bins that differ, and its ms a frame;
-19. the kernels line (launches summed over all paths; K2 under autograd
+20. the kernels line (launches summed over all paths; K2 under autograd
     is an entry of its own per dtype, with its backward's bound, and so
     is K1's backward), the nvidia-smi line, and `{"ok": true, ...}`
     last.
@@ -113,12 +123,15 @@ non-zero and prints no result.  Times come from CUDA events after warm-up.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -216,6 +229,7 @@ BN_STATS_STEP_TOL = 1e-5
 # statistics once instead of twice reads 0.28 (CPU against CPU, the same
 # three steps)
 BN_STATS_TOL = 1e-3
+BN_FRAME_TILES = 4             # of the 1080p chunk, card vs CPU
 # K2 under autograd in bfloat16: the backward formula on the plain
 # version's own output (no relu flip possible) against autograd of plain,
 # relative L2; end to end the kernel's y flips relus near zero (3.2e-2 to
@@ -905,15 +919,14 @@ def phase_end_to_end(torch, dtypes, seed, n_frames):
 
 def phase_k1_backward(torch, dtypes):
     """K1's gradient kernel against `concat_skip_backward_plain` at the
-    shapes the training step gives it: 16 frames at once (the image
-    generator; timed, and the rows returned) and the 8 of one frame step of
-    the video generator."""
+    shapes the training step gives it, timed: 16 frames at once (the image
+    generator; the rows returned) and 8 (a frame step of the video
+    generator, and a rank's image batch in `data_parallel`)."""
     from uncltmo_tpu_torch.ops.kernels.concat_skip import (
         concat_skip_backward_plain, fused_concat_skip_backward)
     g = torch.Generator(device="cuda").manual_seed(6)
     rows = {d: [] for d in dtypes}
     for batch in TRAIN_KERNEL_BATCHES:
-        timed = batch == TRAIN_FRAMES
         for dname, dtype in dtypes.items():
             for c, s in K1_SHAPES:
                 shape = (batch, c, s, s)
@@ -934,15 +947,14 @@ def phase_k1_backward(torch, dtypes):
                 row = dict(dtype=dname, shape=list(shape), max_abs_err=err,
                            bit_exact=exact,
                            zero_share=(x2 == 0).float().mean().item())
-                if timed:
-                    ms = time_ms(lambda: fused_concat_skip_backward(x2, gout))
-                    plain = time_ms(
-                        lambda: concat_skip_backward_plain(x2, gout))
-                    # reads x2 and three slabs of g, writes dx2; dx1 is a view
-                    nbytes = 5 * x2.numel() * x2.element_size()
-                    bms, by = bound_ms(nbytes, 7 * x2.numel(), dname)
-                    row.update(ms=ms, plain_ms=plain, bytes=nbytes,
-                               bound_ms=bms, bound_by=by)
+                ms = time_ms(lambda: fused_concat_skip_backward(x2, gout))
+                plain = time_ms(lambda: concat_skip_backward_plain(x2, gout))
+                # reads x2 and three slabs of g, writes dx2; dx1 is a view
+                nbytes = 5 * x2.numel() * x2.element_size()
+                bms, by = bound_ms(nbytes, 7 * x2.numel(), dname)
+                row.update(ms=ms, plain_ms=plain, bytes=nbytes,
+                           bound_ms=bms, bound_by=by)
+                if batch == TRAIN_FRAMES:
                     rows[dname].append(row)
                 emit("k1_backward", **row)
                 del x2, gout, dx2, ref2
@@ -1001,64 +1013,70 @@ def k2_autograd_check(torch, g, name, cin, c1, c2, s, batch):
     return row, (args, mine, ref, packed, y, y_ref, gy, wanted, wanted_ref)
 
 
-def phase_k2_autograd(torch):
-    """`fused_double_conv3x3` under autograd (the kernel forward, library
-    gradients backward) against autograd of the plain version, float32, at
-    the shapes the training step gives it: 16 frames at once (timed, and
-    the rows returned) and the 8 of a frame step of the video generator."""
+def k2_autograd_times(torch, held, name, cin, c1, c2, s, batch) -> dict:
+    """Forward and backward ms of K2's Function and of autograd of the
+    plain version, cuDNN's forward and the weight packing, beside their
+    bounds, on the tensors `k2_autograd_check` built."""
     import torch.nn.functional as F
     from uncltmo_tpu_torch.ops.kernels.double_conv import (
         double_conv3x3_plain, fused_double_conv3x3, pack_double_conv_weights)
+    args, mine, ref, packed, y, y_ref, gy, wanted, wanted_ref = held
+    x, w1, b1, w2, b2 = args
+    with torch.no_grad():
+        fwd_nograd = time_ms(lambda: fused_double_conv3x3(
+            *args, packed=packed))
+
+        def cudnn():
+            F.relu_(F.conv2d(F.relu_(F.conv2d(x, w1, b1)), w2, b2))
+        library = time_ms(cudnn)
+    fwd = time_ms(lambda: fused_double_conv3x3(*mine, packed=packed))
+    bwd = time_ms(lambda: torch.autograd.grad(y, wanted, gy,
+                                              retain_graph=True))
+    plain_fwd = time_ms(lambda: double_conv3x3_plain(*ref))
+    plain_bwd = time_ms(lambda: torch.autograd.grad(
+        y_ref, wanted_ref, gy, retain_graph=True))
+    pack = time_ms(lambda: pack_double_conv_weights(*args[1:]))
+    # the forward's bound, as in the k2 phase
+    flops = 2 * 9 * batch * (cin * c1 * (s - 2) ** 2
+                             + c1 * c2 * (s - 4) ** 2)
+    nbytes = (x.numel() + y.numel() + w1.numel() + w2.numel()
+              + c1 + c2) * x.element_size()
+    bms, by = bound_ms(nbytes, flops, "float32")
+    # the backward's least time: the wgrad of both cells, conv2's dgrad,
+    # and conv1's dgrad where dx is needed, each as many flops as its
+    # forward, at the float32 peak.  The recompute of conv1 in
+    # `double_conv3x3_backward` is the port's own cost, not the
+    # gradient's, and is left out
+    conv1 = 2 * 9 * batch * cin * c1 * (s - 2) ** 2
+    conv2 = 2 * 9 * batch * c1 * c2 * (s - 4) ** 2
+    bwd_flops = conv1 * (2 if name != "inc" else 1) + 2 * conv2
+    return dict(forward_ms=fwd, forward_ms_no_grad=fwd_nograd,
+                backward_ms=bwd, plain_forward_ms=plain_fwd,
+                plain_autograd_backward_ms=plain_bwd, pack_ms=pack,
+                library_forward_ms=library, flops=flops, bound_ms=bms,
+                bound_by=by, backward_flops=bwd_flops,
+                backward_bound_ms=bwd_flops / PEAK_FLOPS["float32"] * 1e3)
+
+
+def phase_k2_autograd(torch):
+    """`fused_double_conv3x3` under autograd (the kernel forward, library
+    gradients backward) against autograd of the plain version, float32, at
+    the shapes the training step gives it, timed: 16 frames at once (the
+    rows returned) and 8 (a frame step of the video generator, and a
+    rank's image batch in `data_parallel`)."""
     g = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for name, cin, c1, c2, s in K2_SHAPES:
-        row, held = k2_autograd_check(torch, g, name, cin, c1, c2, s,
-                                      TRAIN_FRAMES)
-        args, mine, ref, packed, y, y_ref, gy, wanted, wanted_ref = held
-        x, w1, b1, w2, b2 = args
-        with torch.no_grad():
-            fwd_nograd = time_ms(lambda: fused_double_conv3x3(
-                *args, packed=packed))
-
-            def cudnn():
-                F.relu_(F.conv2d(F.relu_(F.conv2d(x, w1, b1)), w2, b2))
-            library = time_ms(cudnn)
-        fwd = time_ms(lambda: fused_double_conv3x3(*mine, packed=packed))
-        bwd = time_ms(lambda: torch.autograd.grad(y, wanted, gy,
-                                                  retain_graph=True))
-        plain_fwd = time_ms(lambda: double_conv3x3_plain(*ref))
-        plain_bwd = time_ms(lambda: torch.autograd.grad(
-            y_ref, wanted_ref, gy, retain_graph=True))
-        pack = time_ms(lambda: pack_double_conv_weights(*args[1:]))
-        # the forward's bound, as in the k2 phase
-        flops = 2 * 9 * TRAIN_FRAMES * (cin * c1 * (s - 2) ** 2
-                                        + c1 * c2 * (s - 4) ** 2)
-        nbytes = (x.numel() + y.numel() + w1.numel() + w2.numel()
-                  + c1 + c2) * x.element_size()
-        bms, by = bound_ms(nbytes, flops, "float32")
-        # the backward's least time: the wgrad of both cells, conv2's
-        # dgrad, and conv1's dgrad where dx is needed, each as many flops
-        # as its forward, at the float32 peak.  The recompute of conv1 in
-        # `double_conv3x3_backward` is the port's own cost, not the
-        # gradient's, and is left out
-        conv1 = 2 * 9 * TRAIN_FRAMES * cin * c1 * (s - 2) ** 2
-        conv2 = 2 * 9 * TRAIN_FRAMES * c1 * c2 * (s - 4) ** 2
-        bwd_flops = conv1 * (2 if name != "inc" else 1) + 2 * conv2
-        row.update(forward_ms=fwd, forward_ms_no_grad=fwd_nograd,
-                   backward_ms=bwd, plain_forward_ms=plain_fwd,
-                   plain_autograd_backward_ms=plain_bwd, pack_ms=pack,
-                   library_forward_ms=library, flops=flops, bound_ms=bms,
-                   bound_by=by, backward_flops=bwd_flops,
-                   backward_bound_ms=bwd_flops / PEAK_FLOPS["float32"] * 1e3)
-        rows.append(row)
-        emit("k2_autograd", **row)
-        del held, args, mine, ref, y, y_ref, gy, wanted, wanted_ref
-        torch.cuda.empty_cache()
-        small, held = k2_autograd_check(torch, g, name, cin, c1, c2, s,
-                                        TRAIN_BATCH[0])
-        emit("k2_autograd", **small)
-        del held
-        torch.cuda.empty_cache()
+        for batch in (TRAIN_FRAMES, TRAIN_BATCH[0]):
+            row, held = k2_autograd_check(torch, g, name, cin, c1, c2, s,
+                                          batch)
+            row.update(k2_autograd_times(torch, held, name, cin, c1, c2, s,
+                                         batch))
+            if batch == TRAIN_FRAMES:
+                rows.append(row)
+            emit("k2_autograd", batch=batch, **row)
+            del held
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1404,12 +1422,16 @@ def phase_k2_autograd_bf16(torch):
 
 
 class LaunchDtypes:
-    """Records the dtype of every launch of K1 (forward and backward) and
-    of every call of K2's forward kernel and library backward while it is
-    entered, by wrapping the functions that launch them."""
+    """Records the dtype (or another attribute, `what`) of the first
+    tensor of every launch of K1 (forward and backward) and of every call
+    of K2's forward kernel and library backward while it is entered, by
+    wrapping the functions that launch them: the values seen, and launches
+    by value."""
 
-    def __init__(self):
+    def __init__(self, what: str = "dtype"):
+        self.what = what
         self.seen = {}
+        self.counts = {}
 
     def __enter__(self):
         from uncltmo_tpu_torch.ops.kernels import _concat_skip_triton as k1
@@ -1425,7 +1447,10 @@ class LaunchDtypes:
             self._saved.append((mod, name, fn))
 
             def wrapped(x, *a, _fn=fn, _key=key, **kw):
-                self.seen.setdefault(_key, set()).add(str(x.dtype))
+                v = str(getattr(x, self.what))
+                self.seen.setdefault(_key, set()).add(v)
+                by = self.counts.setdefault(_key, {})
+                by[v] = by.get(v, 0) + 1
                 return _fn(x, *a, **kw)
             setattr(mod, name, wrapped)
         return self
@@ -1579,21 +1604,37 @@ BN_PER_STEP = {"fused_concat_skip": 8, "fused_concat_skip_backward": 4,
 BN_SERVE_LAUNCHES = {"fused_concat_skip": 4, "fused_double_conv3x3": 0}
 
 
+def record_forward(engine) -> list:
+    """Wrap `engine._forward` so that each chunk's tiles and outputs are
+    kept on the host, in order; returns the list they go to."""
+    chunks, forward = [], engine._forward
+
+    def kept(tiles):
+        out = forward(tiles)
+        chunks.append((tiles.cpu(), out.cpu()))
+        return out
+
+    engine._forward = kept
+    return chunks
+
+
 def phase_options(torch, seed):
     """The generator's other configurations on the card.  A batch-norm
     generator: three steps at 112 x 112 (B = 2) on the card and on the CPU
     from one seed and the same drop path, running statistics held to each
     other; three steps at the published batch on the card (launches: K1
     in the decoder, no K2, whose cells have a norm), then served from its
-    weights and statistics on a 1080p frame by the card's and the CPU's
-    `InferenceRunner`, PNGs within one level.  Then one forward at the
+    weights and statistics on a 1080p frame by the card's
+    `InferenceRunner`, its chunk's outputs on `BN_FRAME_TILES` tiles held
+    against the CPU's on the same tiles, and on a small frame by the
+    card's and the CPU's, PNGs within one level.  Then one forward at the
     published width of each other option, with the launches of K1 and K2
     it makes.  Returns the launch counts (all float32)."""
     import numpy as np
     from uncltmo_tpu_torch.config import get_model_params
     from uncltmo_tpu_torch.inference.runner import InferenceRunner
     from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
-    from uncltmo_tpu_torch.utils.io import write_radiance_hdr
+    from uncltmo_tpu_torch.utils.io import read_png, write_radiance_hdr
     g_lr, d_lr = 1e-5, 1.5e-5
     total = {}
 
@@ -1681,33 +1722,59 @@ def phase_options(torch, seed):
     del step, state, batches
     torch.cuda.empty_cache()
     mp = dict(get_model_params("batch_norm"), unet_norm="batch_norm")
+    rng = np.random.default_rng(seed + 32)
     with tempfile.TemporaryDirectory() as tmp:
-        img_dir = os.path.join(tmp, "in")
-        os.makedirs(img_dir)
-        write_radiance_hdr(os.path.join(img_dir, "frame.hdr"),
-                           synthetic_hdr(np.random.default_rng(seed + 32),
-                                         *FRAME_HW))
         lam = os.path.join(tmp, "lambdas.npy")
         np.save(lam, {"frame": 40.0})
+        dirs = {}
+        for tag, hw in (("frame", FRAME_HW), ("small", SMALL_HW)):
+            dirs[tag] = os.path.join(tmp, tag)
+            os.makedirs(dirs[tag])
+            write_radiance_hdr(os.path.join(dirs[tag], "frame.hdr"),
+                               synthetic_hdr(rng, *hw))
         pngs, secs = {}, {}
-        for dev in ("cuda", "cpu"):
+        # the 1080p frame on the card (counted), its tiles kept; card vs CPU
+        # on a small frame, and on a subset of the 1080p frame's tiles (the
+        # whole frame on the CPU took 10.5 s of the phase)
+        for dev, tag in (("cuda", "frame"), ("cuda", "small"),
+                         ("cpu", "small")):
             runner = InferenceRunner(mp, None, state_dict=sd, device=dev)
+            if tag == "frame":
+                chunks = record_forward(runner.engine)
+            elif dev == "cpu":
+                cpu_engine = runner.engine
             reset_counts()
             t0 = time.perf_counter()
-            pngs[dev] = runner.run_on_path(img_dir, os.path.join(tmp, dev),
-                                           lam, scale=1)[0]
+            pngs[dev, tag] = runner.run_on_path(
+                dirs[tag], os.path.join(tmp, dev + tag), lam, scale=1)[0]
             if dev == "cuda":
                 torch.cuda.synchronize()
+            if tag == "frame":
                 serve_counts = read_counts()
                 add(serve_counts)
-            secs[dev] = time.perf_counter() - t0
-        diff = png_diff(pngs["cuda"], pngs["cpu"])
-    if diff > 1 or serve_counts != BN_SERVE_LAUNCHES:
-        raise AssertionError(f"options: batch-norm 1080p frame card vs CPU "
-                             f"{diff} levels, launches {serve_counts}")
+            secs[f"{dev}_{tag}"] = time.perf_counter() - t0
+        frame_shape = list(read_png(pngs["cuda", "frame"]).shape)
+        diff = png_diff(pngs["cuda", "small"], pngs["cpu", "small"])
+    # the card's 1080p chunk against the CPU on tiles spread over it (in
+    # eval mode a tile's output is its own, whatever the chunk)
+    tiles, outs = chunks[0]
+    sel = np.linspace(0, len(tiles) - 1, BN_FRAME_TILES).round().astype(int)
+    t0 = time.perf_counter()
+    tile_err = (cpu_engine._forward(tiles[sel]) - outs[sel]).abs().max().item()
+    secs["cpu_frame_tiles"] = time.perf_counter() - t0
+    if (diff > 1 or serve_counts != BN_SERVE_LAUNCHES
+            or frame_shape != list(FRAME_HW) + [3] or len(chunks) != 1
+            or not tile_err <= GEN_TOL["float32"]):
+        raise AssertionError(f"options: batch-norm frame card vs CPU "
+                             f"{diff} levels, 1080p tiles {tile_err}, "
+                             f"launches {serve_counts}, 1080p PNG "
+                             f"{frame_shape}, {len(chunks)} chunks")
     emit("options", part="batch_norm_train_and_serve", batch=list(TRAIN_BATCH),
          steps=3, step_ms_host=steps_ms, launches_per_step=BN_PER_STEP,
-         frame=list(FRAME_HW), png_max_diff_levels=diff,
+         frame=list(FRAME_HW), compared_frame=list(SMALL_HW),
+         png_max_diff_levels=diff, frame_chunk_tiles=len(tiles),
+         frame_tiles_compared=sel.tolist(), frame_tiles_max_abs_err=tile_err,
+         frame_tiles_tolerance=GEN_TOL["float32"],
          serve_launches=serve_counts, serve_s=secs)
 
     # -- one forward of each other option at the published width
@@ -1933,6 +2000,588 @@ def phase_trainer(torch, seed, bare_ms):
             del trainer, fresh, runner
             torch.cuda.empty_cache()
     return total
+
+
+# the data_parallel phase: the training step on two ranks at the published
+# batch (4 clips a rank) against the one-process step from the same state,
+# batch and drop path: the image generator at stages 0-2, with the skip
+# concat's epsilon at 1e-2 and in bfloat16, the video generator at stage 0
+DP_WORLD = 2
+DP_PLAN = [(False, 0, "published"), (False, 1, "published"),
+           (False, 2, "published"), (False, 0, "strict"),
+           (True, 0, "published"), (False, 0, "bf16")]
+# (video, stage, mode): the published epsilon, 1e-2, or bfloat16 autocast
+# at the published epsilon
+DP_STRICT_EPS = 1e-2
+# Two ranks against one process, both on the card.  One process differs
+# from itself between two runs of the same step (cuDNN's float32 gradient
+# algorithms sum in no fixed order): on an H100 80GB HBM3 by up to 4e-3 of
+# max-abs in G's exp_avg (the GCN's `pos_embed`, whose gradient sums the
+# batch through the neighbour choice), 1.8e-3 in the encoder, 3.4e-5 in D;
+# the ranks by up to 1.6e-2, 1.5e-2 and 3.4e-5.  Every G parameter is held
+# in relative L2 and entry by entry (of max-abs): at the published epsilon
+# to `train_reference`'s encoder limits (5e-2 / 0.15) and its D and log
+# limits; with the skip concat's epsilon at 1e-2 tighter, where the
+# encoder has no singularity.
+DP_STRICT = {"log": 1e-4, "grad_log": 1e-3, "D": 2e-4, "G_l2": 2e-2,
+             "G_max": 5e-2}
+DP_PUBLISHED = {"log": REF_LOG_RTOL, "grad_log": REF_ENCODER_LOG_RTOL,
+                "D": REF_D_TOL, "G_l2": REF_ENCODER_L2_TOL,
+                "G_max": REF_ENCODER_MAX_TOL}
+# bfloat16 (autocast; the collectives in float32): the losses as
+# `train_bf16` holds bf16 against float32.  A weight gradient leaves its
+# bfloat16 convolution rounded to 2^-8 of its size, and each rank rounds
+# its half-batch sum before the all-reduce where one process rounds the
+# whole sum once: where a sum cancels, as a D bias's over few samples
+# does, that moves it by a tenth of its max-abs (0.11 for `model.2.bias`
+# on the CPU at 112 px, 3.3e-2 on an H100 80GB HBM3, where G's
+# `pos_embed` moved by 4.8e-2 in relative L2); held as
+# `tests/test_torch_bf16_train.py` holds the bf16 step's moments (0.1 in
+# relative L2)
+DP_BF16 = dict(DP_PUBLISHED, log=BF16_LOG_RTOL, grad_log=1e-2, D=0.3,
+               G_l2=0.1)
+# D's last bias (`model.4.bias`) shifts every logit alike, which the
+# relativistic loss does not see: its gradient is rounding noise, held
+# apart from the other parameters by its largest |exp_avg| on either side,
+# as `tests/test_torch_distributed.py` holds it on the CPU (1e-5).  In
+# bfloat16 the sum of the logits' gradients (of unit size in all) keeps the
+# rounding of its bfloat16 partial sums, 2^-8 of their size each (an
+# exp_avg of 2^-7 on the CPU at 112 px): held at a tenth of the unit sum
+DP_STRICT["D_bias"] = DP_PUBLISHED["D_bias"] = 1e-5
+DP_BF16["D_bias"] = 5e-2
+DP_LOGIT_BIAS = "D.model.4.bias"
+DP_ENGINE_TOL = 1e-5           # the sharded canvas, of the one-device's max
+DP_ENGINE_HW = (1096, 1936)    # a 1080p frame padded to the U-Net grid
+DP_TIMEOUT_S = 300.0
+# `GanTrainer.train()` on the ranks: a main epoch of 4 steps at the
+# published batch (a summary and a checkpoint each step), resumed from a
+# warm checkpoint with the skip concat's epsilon at 1e-2, as
+# `tests/test_torch_distributed.py` runs the CLI.  Otherwise the ranks'
+# rounding becomes another trajectory within a few steps: on the CPU at
+# 112 px, where each single step agrees to 1e-4, G's exp_avg was 0.38
+# apart in relative L2 after a D pre-train epoch and four steps at the
+# published epsilon (the encoder's gradient behind 0.5 / sqrt(x2 + 1e-8)),
+# and 1.6e-2 at epsilon 1e-2 (fresh Adam moves every parameter by +-lr)
+DP_TRAINER_ITEMS = 4 * TRAIN_BATCH[0]
+# Over four steps on the card the one-process run differs from itself
+# (cuDNN's and the GCN's float32 gradient sums have no fixed order), and a
+# parameter whose gradient cancels over the batch reads that spread large
+# of its own max-abs (D's `model.2.bias`: 3.7e-3 after four steps on an
+# H100 80GB HBM3, where the losses agreed to 4e-7).  So the trainer is held
+# by its logs and layer by layer in relative L2, as
+# `tests/test_torch_distributed.py` holds the CLI's `.pth`, at the strict
+# step's limits; a rank with the wrong rows, state or gradient is off by
+# a whole layer
+DP_TRAINER = {"log": DP_STRICT["log"], "grad_log": DP_STRICT["grad_log"],
+              "layer_l2": DP_STRICT["G_l2"], "D_bias": DP_STRICT["D_bias"]}
+
+
+def first_moments(torch, state) -> dict:
+    """Adam's exp_avg of every parameter by "D.name" / "G.name", on the
+    host in one device-to-host copy: with two ranks on one card each small
+    copy waits for the other rank's time slice."""
+    names, flat = [], []
+    for gname, module, opt in (("D", state.disc, state.opt_D),
+                               ("G", state.gen, state.opt_G)):
+        for name, p in module.named_parameters():
+            names.append((f"{gname}.{name}", p.shape))
+            flat.append(opt.state[p]["exp_avg"].reshape(-1))
+    flat = torch.cat(flat).cpu()
+    moments, i = {}, 0
+    for name, shape in names:
+        n = shape.numel()
+        moments[name] = flat[i:i + n].view(shape)
+        i += n
+    return moments
+
+
+def dp_steps(torch, seed, device, rank, world, digest=True) -> list:
+    """`DP_PLAN`'s steps (float32, or bfloat16 in mode "bf16"), each from
+    the seeded initial state and fresh Adam states, on this rank's rows of
+    the published batch (all of them in one process), the drop path drawn
+    from one seeded generator.  A step: its logs, first moments by name,
+    the state's digest, its ms by CUDA events, its launches."""
+    import numpy as np
+    from uncltmo_tpu_torch import params
+    from uncltmo_tpu_torch.parallel import mesh
+    from uncltmo_tpu_torch.training.state import TrainState
+    built, out = {}, []
+    published = params.EPSILON
+    for video, stage, mode in DP_PLAN:
+        key = (video, mode == "bf16")
+        clock = {"t": time.perf_counter()}
+        host_s = {}
+
+        def lap(name):
+            t = time.perf_counter()
+            host_s[name] = t - clock["t"]
+            clock["t"] = t
+
+        if key not in built:
+            rng = np.random.default_rng(seed + 50 + int(video))
+            batch = synthetic_batch(rng, TRAIN_BATCH[0], TRAIN_BATCH[2])
+            step, state = build_trainer(
+                torch, seed, video, device, size=TRAIN_BATCH[2],
+                dtype=torch.bfloat16 if key[1] else torch.float32)
+            built[key] = (step, state.gen, state.disc,
+                          copy.deepcopy(state.gen.state_dict()),
+                          copy.deepcopy(state.disc.state_dict()),
+                          mesh.shard_batch(batch, rank, world))
+        lap("build")
+        step, gen, disc, gen0, disc0, batch = built[key]
+        gen.load_state_dict(gen0)
+        disc.load_state_dict(disc0)
+        state = TrainState.create(gen, disc)
+        lap("reset")
+        generator = torch.Generator(device=device).manual_seed(seed)
+        params.EPSILON = DP_STRICT_EPS if mode == "strict" else published
+        n0 = train_counts()
+        try:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, logs = step(state, batch, generator, 1e-5, 1.5e-5,
+                               stage=stage)
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            params.EPSILON = published
+        lap("step")
+        moments = first_moments(torch, state)
+        lap("moments")
+        digest_hex = mesh.state_digest(state) if digest else None
+        lap("digest")
+        out.append({"logs": {k: float(v) for k, v in logs.items()},
+                    "moments": moments, "digest": digest_hex,
+                    "host_s": host_s, "ms": start.elapsed_time(end),
+                    "launches": {k: v - n0[k]
+                                 for k, v in train_counts().items()}})
+    return out
+
+
+def dp_source():
+    from uncltmo_tpu_torch.data.pipeline import SyntheticDataSource
+    return SyntheticDataSource(size=TRAIN_BATCH[2], n_items=DP_TRAINER_ITEMS)
+
+
+def warm_checkpoint(torch, opt, out_dirs) -> None:
+    """The trainer's initial state with warm Adam states (ten steps old,
+    exp_avg 0, a flat exp_avg_sq of 1e-2: the update is smooth in the
+    gradient), saved as the checkpoint of iteration 0 in each of
+    `out_dirs`, which `opt.checkpoint` resumes from."""
+    from uncltmo_tpu_torch.training.trainer import GanTrainer
+    from uncltmo_tpu_torch.utils import checkpoint as ckpt
+    st = GanTrainer(opt, source=dp_source(), device="cuda").state
+    for adam, module in ((st.opt_G, st.gen), (st.opt_D, st.disc)):
+        for p in module.parameters():
+            adam.state[p] = {"step": torch.tensor(10.0),
+                             "exp_avg": torch.zeros_like(p),
+                             "exp_avg_sq": torch.full_like(p, 1e-2)}
+    for out in out_dirs:
+        ckpt.save_train_state(os.path.join(out, "models"), 0, 0, st,
+                              extra_meta={"num_iter": 0})
+
+
+def dp_trainer(torch, opt, device, assess: tuple) -> dict:
+    """`GanTrainer.train()` on `dp_source()` in this process, a rank of the
+    group or the only one, resumed from `warm_checkpoint`, with the skip
+    concat's epsilon at `DP_STRICT_EPS`; then the final
+    assessment of `assess` (an image directory and its lambdas; rank 0
+    renders); then a
+    fresh trainer loads the newest checkpoint.  Returns the first moments,
+    the digests of the live and of the resumed state, the launches of the
+    run (drained) and of the assessment, the rendered files, seconds."""
+    from uncltmo_tpu_torch import params
+    from uncltmo_tpu_torch.parallel import mesh
+    from uncltmo_tpu_torch.training.trainer import GanTrainer
+    published, params.EPSILON = params.EPSILON, DP_STRICT_EPS
+    try:
+        t0 = time.perf_counter()
+        trainer = GanTrainer(opt, source=dp_source(), device=device)
+        init_s = time.perf_counter() - t0
+        reset_train_counts()
+        t0 = time.perf_counter()
+        trainer.train()                # drains the saver and host worker
+        torch.cuda.synchronize(trainer.device)
+        train_s = time.perf_counter() - t0
+        counts = train_counts()
+        reset_counts()
+        pngs = trainer.run_final_assessment(*assess, scale=1)
+        torch.cuda.synchronize(trainer.device)
+        assess_counts = read_counts()
+    finally:
+        params.EPSILON = published
+    fresh = GanTrainer(opt, source=dp_source(), device=device)
+    fresh.load_checkpoint()
+    return {"moments": first_moments(torch, trainer.state),
+            "digest": mesh.state_digest(trainer.state),
+            "resumed_digest": mesh.state_digest(fresh.state),
+            "resumed_num_iter": fresh.num_iter, "step": trainer.state.step,
+            "world": trainer.world, "launches": counts,
+            "assessment_launches": assess_counts,
+            "assessment_pngs": None if pngs is None else len(pngs),
+            "init_s": init_s, "train_s": train_s,
+            "timings": dict(trainer.last_epoch_timings)}
+
+
+def dp_rank(dev, out_dir: str, seed: int, opt, assess: tuple) -> None:
+    """A rank of the data_parallel phase (`mesh.launch` has joined it to
+    the group on `dev`): wait until the parent's one-process runs are done
+    (so that the ranks' times are their own), run `DP_PLAN` and then
+    `dp_trainer`, save the results."""
+    import torch
+    from uncltmo_tpu_torch.inference.engine import disable_tf32
+    from uncltmo_tpu_torch.parallel import mesh
+    rank, world = mesh.rank_world()
+    disable_tf32("cuda")
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    # the card's context and cuDNN's handle (8 s in a fresh process),
+    # while the parent runs its one-process steps
+    torch.nn.functional.conv2d(torch.zeros(1, 1, 4, 4, device=dev),
+                               torch.zeros(1, 1, 3, 3, device=dev))
+    torch.cuda.synchronize(dev)
+    ready = os.path.join(out_dir, "ready")
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    while not os.path.exists(ready):
+        if time.perf_counter() > deadline:
+            raise TimeoutError("data_parallel: no one-process steps")
+        time.sleep(0.05)
+    mesh.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_train_counts()
+    t0 = time.perf_counter()
+    results = dp_steps(torch, seed, dev, rank, world)
+    launches = train_counts()
+    steps_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    trainer = dp_trainer(torch, opt, dev, assess)
+    torch.save({"results": results, "launches": launches,
+                "steps_s": steps_s, "peak_memory_gb": peak_gb,
+                "trainer": trainer, "device": str(dev),
+                "backend": mesh.dist.get_backend()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+class DPRanks(threading.Thread):
+    """`mesh.launch(fn, DP_WORLD, "cuda", *args)` on a thread of its own,
+    so that the parent works while the ranks start.  `finish` joins it and
+    raises a rank's failure; ranks that outlive its deadline, or the
+    parent's failure (`stop`), are terminated."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args, self.error = fn, args, None
+
+    def run(self):
+        from uncltmo_tpu_torch.parallel import mesh
+        try:
+            mesh.launch(self.fn, DP_WORLD, "cuda", *self.args)
+        except BaseException as e:     # raised again by `finish`
+            self.error = e
+
+    def stop(self) -> None:
+        import multiprocessing
+        for p in multiprocessing.active_children():
+            p.terminate()
+        self.join(30)
+
+    def finish(self, timeout: float) -> None:
+        self.join(timeout)
+        if self.is_alive():
+            self.stop()
+            raise TimeoutError("data_parallel: the ranks hang")
+        if self.error is not None:
+            raise AssertionError(f"data_parallel: a rank failed: "
+                                 f"{self.error}") from self.error
+
+
+def last_train_logs(out_dir: str) -> tuple:
+    """(the number of train records, the logs of the last one) of a
+    trainer's JSONL."""
+    with open(os.path.join(out_dir, "train_metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    recs = [r for r in recs if r.get("phase") == "train"]
+    meta = ("step", "time", "epoch", "phase", "sec_per_step")
+    return len(recs), {k: v for k, v in recs[-1].items() if k not in meta}
+
+
+def dp_compare(ref: dict, got: dict) -> dict:
+    """Logs and first moments of a step against another run of it: the
+    largest relative error of the loss and statistics logs and of the
+    gradient logs; exp_avg's largest error of its max-abs for D and for
+    G, G's largest relative L2, and the largest relative L2 of a layer
+    (the unit of the `gradG/*` logs: `D.model.2`, `G.down_path.0`,
+    `G.gcn`, ...), with the parameters and the layer where they fall."""
+    import torch
+    worst = {"D": (0.0, ""), "G_max": (0.0, ""), "G_l2": (0.0, ""),
+             "layer_l2": (0.0, "")}
+    layers = {}
+    for name, mc in ref["moments"].items():
+        ma = got["moments"][name]
+        if name == DP_LOGIT_BIAS:      # rounding noise: held absolutely
+            continue
+        parts = name.split(".")
+        layer = ".".join(parts[:3] if parts[1] in (
+            "down_path", "up_path", "model", "tail") else parts[:2])
+        layers.setdefault(layer, []).append((ma.reshape(-1), mc.reshape(-1)))
+        errs = {"max": ((ma - mc).abs().max() / mc.abs().max()).item(),
+                "l2": ((ma - mc).norm() / mc.norm()).item()}
+        keys = (("D", "max"),) if name[0] == "D" else (("G_max", "max"),
+                                                       ("G_l2", "l2"))
+        for key, kind in keys:
+            if errs[kind] >= worst[key][0]:
+                worst[key] = (errs[kind], name)
+    for layer, pairs in layers.items():
+        a, c = (torch.cat([p[i] for p in pairs]) for i in (0, 1))
+        e = ((a - c).norm() / c.norm()).item()
+        if e >= worst["layer_l2"][0]:
+            worst["layer_l2"] = (e, layer)
+    err = {k: abs(got["logs"][k] - v) / max(abs(v), 1e-30)
+           for k, v in ref["logs"].items() if abs(v) > 1e-12}
+    return {"log": max(v for k, v in err.items()
+                       if not k.startswith("gradG/")),
+            "grad_log": max(v for k, v in err.items()
+                            if k.startswith("gradG/")),
+            **{k: v for k, (v, _) in worst.items()},
+            "D_bias": max(ref["moments"][DP_LOGIT_BIAS].abs().max().item(),
+                          got["moments"][DP_LOGIT_BIAS].abs().max().item()),
+            "worst_parameter": {k: n for k, (_, n) in worst.items()}}
+
+
+def dp_check(tag: str, e: dict, mode: str) -> None:
+    limits = {"strict": DP_STRICT, "bf16": DP_BF16,
+              "trainer": DP_TRAINER}.get(mode, DP_PUBLISHED)
+    bad = [k for k, v in limits.items() if not e[k] <= v]
+    if bad:
+        raise AssertionError(f"data_parallel {tag}: {bad} beyond "
+                             f"{limits} against one process: {e}")
+
+
+def dp_engine(torch, seed, devices) -> dict:
+    """`TileEngine(devices=...)` against the one-device engine on a 1080p
+    frame (published generator) and a 4-frame 1080p scene (published and
+    `batchMax` generators): the canvas within `DP_ENGINE_TOL` of max-abs
+    and the 8-bit renders within one level, with cuDNN's deterministic
+    algorithms (without them the one-device engine differs from itself by
+    up to 1.6e-4 of max-abs between two runs on an H100 80GB HBM3: that
+    spread is recorded too); ms of each engine as served (cuDNN's own
+    choice); launches by device."""
+    import numpy as np
+    from uncltmo_tpu_torch.inference.engine import TileEngine
+    from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
+    rng = np.random.default_rng(seed + 60)
+    h, w = DP_ENGINE_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    scene = np.stack([0.45 + 0.25 * np.sin(xx / (40.0 + 7 * t) + yy / 55.0)
+                      + 0.05 * rng.standard_normal((h, w)).astype(np.float32)
+                      for t in range(VIDEO_FRAMES)])
+    scene = torch.from_numpy(np.clip(scene, 0, 1)[..., None]).cuda()
+
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    out, counts = {}, {}
+    for stretch in ("none", "batchMax"):
+        gen = seeded_init_(UNetTMO(stretch_g=stretch), seed)
+        one = TileEngine(gen, device="cuda")
+        two = TileEngine(gen, devices=devices)
+        runs = [("scene", lambda e: e.run_video(scene))]
+        if stretch == "none":
+            runs.insert(0, ("frame", lambda e: e.run_image(scene[0])))
+        for what, run in runs:
+            tag = f"{what}_{stretch}"
+            spread = rel(run(one), run(one))
+            torch.backends.cudnn.deterministic = True
+            try:
+                ref = run(one)
+                reset_counts()
+                with LaunchDtypes(what="device") as by_device:
+                    got = run(two)
+                    torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            counts[tag] = {"total": read_counts(),
+                           "by_device": by_device.counts}
+            err = rel(got, ref)
+            u8 = [np.clip(x.cpu().numpy() * 255.0, 0, 255).astype(np.int16)
+                  for x in (got, ref)]
+            levels = int(np.abs(u8[0] - u8[1]).max())
+            out[tag] = {"canvas_max_err_of_max_abs": err,
+                        "render_max_level_diff": levels,
+                        "one_device_vs_itself_default_cudnn": spread,
+                        "ms_one_device": time_ms(lambda: run(one), 1, 1),
+                        "ms_sharded": time_ms(lambda: run(two), 1, 1)}
+            if not (err <= DP_ENGINE_TOL and levels <= 1):
+                raise AssertionError(f"data_parallel engine {tag}: canvas "
+                                     f"{err} of max-abs, {levels} levels")
+        del one, two
+    return {"results": out, "launches": counts}
+
+
+def phase_data_parallel(torch, seed) -> dict:
+    """Two ranks (`mesh.launch`: NCCL over two cards where there are two,
+    else gloo with both ranks on card 0) at the published batch, 4 clips a
+    rank.  The training step against the one-process step from the same
+    state, batch and drop path (`DP_PLAN`), the ranks' states after every
+    step by digest, K1, K1's backward and K2 launched on both ranks; then
+    `GanTrainer.train()` on the ranks against one process (`dp_trainer`:
+    the resume on every rank, the sharded prefetch, rank 0's logs,
+    checkpoints, sample grids and final assessment, the barriers); then the
+    tile-sharded engine (`dp_engine`).  The kernels were built before, so
+    the ranks load them from the cache.  Returns the phase's launches by
+    dtype."""
+    import numpy as np
+    from uncltmo_tpu_torch.parallel import mesh
+    from uncltmo_tpu_torch.data.pipeline import (SyntheticDataSource,
+                                                 TrainPipeline)
+    from uncltmo_tpu_torch.inference.engine import disable_tf32
+    from uncltmo_tpu_torch.utils.io import write_radiance_hdr
+    t_phase = time.perf_counter()
+    disable_tf32("cuda")               # as in the ranks: float32 parity
+    n_cards = torch.cuda.device_count()
+    backend = mesh.backend_for("cuda", DP_WORLD)
+    with tempfile.TemporaryDirectory() as tmp:
+        assess = (os.path.join(tmp, "assess"), os.path.join(tmp, "lam.npy"))
+        os.makedirs(assess[0])
+        write_radiance_hdr(os.path.join(assess[0], "small.hdr"),
+                           synthetic_hdr(np.random.default_rng(seed + 61),
+                                         *SMALL_HW))
+        np.save(assess[1], {"small": 40.0})
+        opts = {n: dataclasses.replace(
+            trainer_options(os.path.join(tmp, n), seed), checkpoint=1)
+            for n in ("one", "again", "two")}
+        warm_checkpoint(torch, opts["one"], [o.output_dir
+                                             for o in opts.values()])
+        ranks_thread = DPRanks(dp_rank, tmp, seed, opts["two"], assess)
+        ranks_thread.start()
+        try:
+            # the one-process steps on card 0 while the ranks start
+            refs = dp_steps(torch, seed, "cuda", 0, 1, digest=False)
+            # ... and again: the step's own run-to-run spread on the card
+            again = dp_steps(torch, seed, "cuda", 0, 1, digest=False)
+            trainer_ref = dp_trainer(torch, opts["one"], "cuda", assess)
+            trainer_again = dp_trainer(torch, opts["again"], "cuda", assess)
+            one_process_s = time.perf_counter() - t_phase
+            with open(os.path.join(tmp, "ready"), "w"):
+                pass
+            ranks_thread.finish(DP_TIMEOUT_S)
+        finally:
+            if ranks_thread.is_alive():
+                ranks_thread.stop()
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+        logged = {n: last_train_logs(o.output_dir) for n, o in opts.items()}
+        ckpts = {n: sorted(os.listdir(os.path.join(o.output_dir, "models")))
+                 for n, o in opts.items()}
+    ranks_s = time.perf_counter() - t_phase
+    steps = []
+    for i, (video, stage, mode) in enumerate(DP_PLAN):
+        tag = f"{'video' if video else 'image'} stage {stage} {mode}"
+        got = [r["results"][i] for r in ranks]
+        if (len({g["digest"] for g in got}) != 1
+                or any(g["logs"] != got[0]["logs"] for g in got)):
+            raise AssertionError(f"data_parallel {tag}: the ranks' states "
+                                 "or logs differ")
+        steps.append({"generator": "video" if video else "image",
+                      "stage": stage, "mode": mode,
+                      "rank_ms": [g["ms"] for g in got],
+                      "rank_host_s": [g["host_s"] for g in got],
+                      "one_process_ms": refs[i]["ms"],
+                      "digest": got[0]["digest"][:16],
+                      "ranks_vs_one_process": dp_compare(refs[i], got[0]),
+                      "one_process_vs_itself": dp_compare(refs[i],
+                                                          again[i])})
+    launches = {"float32": {}, "bfloat16": {}}
+    for r in ranks:
+        for (video, _, mode), res in zip(DP_PLAN, r["results"]):
+            if res["launches"] != train_per_step(video):
+                raise AssertionError(
+                    f"data_parallel: rank on {r['device']} launched "
+                    f"{res['launches']} in a {mode} step, expected "
+                    f"{train_per_step(video)}")
+            by = launches["bfloat16" if mode == "bf16" else "float32"]
+            for k, v in res["launches"].items():
+                by[k] = by.get(k, 0) + v
+    # the trainer on the ranks against one process
+    tr = [r["trainer"] for r in ranks]
+    n_steps = DP_TRAINER_ITEMS // TRAIN_BATCH[0]
+    # rank 0 draws the sample grids, as one process does
+    want = [trainer_want(False, n_steps)] * 2 + [
+        {k: n_steps * v for k, v in train_per_step(False).items()}
+    ] * (DP_WORLD - 1)
+    trainer_vs_one, trainer_vs_itself = (dp_compare(
+        {"moments": trainer_ref["moments"], "logs": logged["one"][1]},
+        {"moments": t["moments"], "logs": logged[n][1]})
+        for t, n in ((tr[0], "two"), (trainer_again, "again")))
+    trainer = {
+        "steps": n_steps, "items": DP_TRAINER_ITEMS,
+        "rank_launches": [t["launches"] for t in tr],
+        "assessment_launches": [t["assessment_launches"] for t in tr],
+        "rank_init_s": [t["init_s"] for t in tr],
+        "rank_train_s": [t["train_s"] for t in tr],
+        "rank_timings": [t["timings"] for t in tr],
+        "one_process_train_s": trainer_ref["train_s"],
+        "digest": tr[0]["digest"][:16],
+        "train_records": {n: v[0] for n, v in logged.items()},
+        "checkpoints": ckpts["two"],
+        "ranks_vs_one_process": trainer_vs_one,
+        "one_process_vs_itself": trainer_vs_itself}
+    for k in launches["float32"]:
+        launches["float32"][k] += sum(t["launches"][k] for t in tr)
+    # what every rank pays to make the whole global batch and keep half
+    # of it (the stream stays the one-process run's): host ms a batch
+    batch_ms = {}
+    for tag, b in (("global", TRAIN_BATCH[0]),
+                   ("rank_rows", TRAIN_BATCH[0] // DP_WORLD)):
+        pipe = TrainPipeline(SyntheticDataSource(size=TRAIN_BATCH[2]), b)
+        t0 = time.perf_counter()
+        for i in range(3):
+            pipe._make_batch(pipe.batch_rng(0, 0, i))
+        batch_ms[tag] = (time.perf_counter() - t0) / 3 * 1e3
+    devices = (mesh.get_mesh(DP_WORLD) if n_cards >= DP_WORLD
+               else [torch.device("cuda", 0)] * DP_WORLD)
+    t0 = time.perf_counter()
+    engine = dp_engine(torch, seed, devices)
+    engine_s = time.perf_counter() - t0
+    for c in list(engine["launches"].values()) + [
+            {"total": t["assessment_launches"]} for t in tr]:
+        for k, v in c["total"].items():
+            launches["float32"][k] += v
+    emit("data_parallel", backend=backend, cards=n_cards, ranks=DP_WORLD,
+         rank_devices=[r["device"] for r in ranks],
+         rank_backends=[r["backend"] for r in ranks],
+         batch_per_rank=[TRAIN_BATCH[0] // DP_WORLD] + list(TRAIN_BATCH[1:]),
+         steps=steps, launches_per_rank=[r["launches"] for r in ranks],
+         peak_memory_gb_per_rank=[r["peak_memory_gb"] for r in ranks],
+         trainer=trainer, engine_devices=[str(d) for d in devices],
+         engine=engine, host_batch_ms=batch_ms, one_process_s=one_process_s,
+         rank_steps_s=[r["steps_s"] for r in ranks], ranks_s=ranks_s,
+         engine_s=engine_s, phase_s=time.perf_counter() - t_phase)
+    # the checks, after the record is out
+    for (video, stage, mode), st in zip(DP_PLAN, steps):
+        dp_check(f"{st['generator']} stage {stage} {mode}",
+                 st["ranks_vs_one_process"], mode)
+    dp_check("trainer", trainer_vs_one, "trainer")
+    bad = []
+    got = [t["launches"] for t in [trainer_ref] + tr]
+    if got != want:
+        bad.append(f"launches {got} (one process, ranks), expected {want}")
+    if len({t["digest"] for t in tr} | {t["resumed_digest"] for t in tr}) != 1:
+        bad.append("the ranks' states differ, or do not resume bit for bit")
+    if [t["world"] for t in tr] != [DP_WORLD] * DP_WORLD or any(
+            t["resumed_num_iter"] != n_steps or t["step"] != n_steps
+            for t in tr + [trainer_ref]):
+        bad.append("world, step or resumed iteration")
+    if [t["assessment_pngs"] for t in tr] != [1] + [None] * (DP_WORLD - 1) \
+            or not all(tr[0]["assessment_launches"].values()) \
+            or any(any(t["assessment_launches"].values()) for t in tr[1:]):
+        bad.append("the final assessment is not rank 0's alone")
+    if (len({v[0] for v in logged.values()}) != 1
+            or ckpts["two"] != ckpts["one"]):
+        bad.append(f"records {logged}, checkpoints {ckpts}")
+    if bad:
+        raise AssertionError(f"data_parallel trainer: {bad}")
+    return launches
 
 
 class StageClock:
@@ -2549,10 +3198,14 @@ def main(argv=None) -> int:
         train16 = phase_train_bf16(torch, args.seed, stage_ms)
         options = phase_options(torch, args.seed)
         trainer = phase_trainer(torch, args.seed, stage_ms)
+        data_parallel = phase_data_parallel(torch, args.seed)
         tester = phase_tester(torch, args.seed, scenes, scene_lams)
         assessment = phase_assessment(torch, args.seed,
                                       os.path.join(shared, VIDEO_RENDER))
-    train = {k: train[k] + trainer[k] + options.get(k, 0) for k in train}
+    train = {k: train[k] + trainer[k] + options.get(k, 0)
+             + data_parallel["float32"][k] for k in train}
+    train16 = {k: v + data_parallel["bfloat16"][k]
+               for k, v in train16.items()}
     # each path was driven with the counts set to 0 just before it and read
     # just after; the kernels line carries their sum (training, the options,
     # the Tester and the final assessment are float32 but for `train_bf16`)

@@ -139,6 +139,34 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         fused_concat_skip(x, x[:, :2])
 
 
+def test_kernels_launch_on_the_tensors_card(cuda_device):
+    """With card 0 current, tensors on card 1 (made there just before, on
+    its own stream) go through K1, its backward and K2 on card 1, as an
+    engine over two devices runs them."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x2 = torch.rand(8, 32, 126, 126, generator=g).to(dev) * 2.0
+    x1 = torch.randn(8, 32, 126, 126, generator=g).to(dev) - 0.5
+    gout = torch.randn(8, 128, 126, 126, generator=g).to(dev)
+    w1, b1 = torch.randn(64, 32, 3, 3, generator=g).to(dev) * 0.08, \
+        torch.randn(64, generator=g).to(dev)
+    w2, b2 = torch.randn(64, 64, 3, 3, generator=g).to(dev) * 0.06, \
+        torch.randn(64, generator=g).to(dev)
+    with torch.cuda.device(0):
+        out = fused_concat_skip(x2, x1)
+        dx2, dx1 = fused_concat_skip_backward(x2, gout)
+        y = fused_double_conv3x3(x2, w1, b1, w2, b2)
+    torch.cuda.synchronize(dev)
+    assert out.device == dx2.device == y.device == dev
+    assert torch.equal(out, concat_skip_plain(x2, x1))
+    ref_dx2, ref_dx1 = concat_skip_backward_plain(x2, gout)
+    assert torch.equal(dx2, ref_dx2) and torch.equal(dx1, ref_dx1)
+    torch.testing.assert_close(y, double_conv3x3_plain(x2, w1, b1, w2, b2),
+                               rtol=1e-4, atol=1e-4)
+
+
 def _post_relu(shape, g, dtype):
     """A skip as the encoder makes it: non-negative, many exact zeros."""
     x = torch.randn(shape, generator=g, device="cuda")

@@ -13,7 +13,8 @@ about bookkeeping.
   setting: warm Adam states and the skip concat's epsilon patched to 1e-2
   on both sides (that file's docstring says why); `drop_path` is patched on
   both sides to read its masks from one table, as there.
-* Each refusal raises by name; both training CLIs run a tiny `--device
+* Each refusal raises by name (the data-parallel ones are the JAX
+  trainer's `ValueError`s); both training CLIs run a tiny `--device
   cpu` run with an evaluation directory in a subprocess; a training
   checkpoint is served by
   `InferenceRunner` and both serving CLIs from its `.pth`.
@@ -40,6 +41,7 @@ from uncltmo_tpu_torch.config import (Options, create_output_dirs,
                                       get_model_params, save_run_settings)
 from uncltmo_tpu_torch.data.pipeline import SyntheticDataSource
 from uncltmo_tpu_torch.models import gcn as tgcn
+from uncltmo_tpu_torch.parallel import mesh
 from uncltmo_tpu_torch.training.trainer import GanTrainer
 from uncltmo_tpu_torch.utils import checkpoint as ckpt
 from uncltmo_tpu_torch.utils.convert import (state_dict_from_flax,
@@ -299,27 +301,45 @@ def test_three_trainer_iterations_match_the_jax_trainer(tmp_path,
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("kw, error, match", [
-    (dict(data_parallel=2, batch_size=3), NotImplementedError,
-     "data_parallel=2.*ROADMAP Queue 1 item 7"),
-    (dict(data_parallel=4), NotImplementedError,
-     "data_parallel=4.*ROADMAP Queue 1 item 7"),
-    (dict(add_frame=1), ValueError, "add_frame"),
-    (dict(final_shape_addition=8), ValueError, "final_shape_addition"),
-    (dict(d_model="patchD"), ValueError, "simpleD"),
-    (dict(compute_dtype="float16"), ValueError, "float32 or bfloat16"),
-    (dict(unet_norm="group_norm"), ValueError, "Unsupported norm"),
+@pytest.mark.parametrize("kw, device, error, match", [
+    (dict(data_parallel=2, batch_size=3), "cpu", ValueError,
+     "batch_size=3 is not divisible by data_parallel=2"),
+    (dict(data_parallel=4), "cuda", ValueError,
+     "data_parallel=4 requested but only 2 devices are visible"),
+    (dict(add_frame=1), "cpu", ValueError, "add_frame"),
+    (dict(final_shape_addition=8), "cpu", ValueError,
+     "final_shape_addition"),
+    (dict(d_model="patchD"), "cpu", ValueError, "simpleD"),
+    (dict(compute_dtype="float16"), "cpu", ValueError,
+     "float32 or bfloat16"),
+    (dict(unet_norm="group_norm"), "cpu", ValueError, "Unsupported norm"),
 ], ids=["dp-batch", "dp-devices", "add_frame", "shape_addition", "patchD",
         "float16", "unknown_norm"])
-def test_each_refusal_raises_by_name(tmp_path, kw, error, match):
+def test_each_refusal_raises_by_name(tmp_path, monkeypatch, kw, device,
+                                     error, match):
+    """The data-parallel checks are the JAX trainer's, word for word
+    (`uncltmo_tpu/training/trainer.py:49-66`), with two cards visible."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(error, match=match):
-        GanTrainer(_opt(tmp_path, **kw), device="cpu")
+        GanTrainer(_opt(tmp_path, **kw), device=device)
 
 
 def test_more_than_one_card_is_refused_by_name(tmp_path, monkeypatch):
+    """A `GanTrainer` is one rank of its process group.  Built outside one
+    it runs one process whatever cards are visible (`data_parallel` 0),
+    and a count above one that passes the JAX checks says how to start
+    the ranks; the training CLI's 0 takes every visible card when the
+    batch divides over them."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="--data_parallel 2 or with torchrun"):
         GanTrainer(_opt(tmp_path, data_parallel=2), device="cuda")
+    assert mesh.trainer_data_parallel(0, 4, "cuda") == 1
+    assert mesh.resolve_data_parallel(0, 4, "cuda") == 4
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 devices are visible"):
+        GanTrainer(_opt(tmp_path, data_parallel=2), device="cuda")
+    assert GanTrainer(_opt(tmp_path, data_parallel=0), device="cpu").world \
+        == 1
 
 
 # ----------------------------------------------------------------- CLIs

@@ -136,10 +136,12 @@ class Options:
                                        # (`GanTrainer.py:441-451`)
     compute_dtype: str = "float32"     # "bfloat16" for fastest training
                                        # (autocast; params stay float32)
-    data_parallel: int = 0             # cards for batch sharding; 0=auto
-                                       # (one card in the port), >1 =
-                                       # required: refused by the port
-                                       # (ROADMAP Queue 1 item 7)
+    data_parallel: int = 0             # cards for batch sharding: the
+                                       # training CLIs start one process
+                                       # a card; 0 = every visible card
+                                       # when the batch divides, else 1
+                                       # (a GanTrainer built alone: its
+                                       # process group's size, else 1)
     log_every: int = 50
     data_workers: int = 0              # batch-production threads (0 = auto:
                                        # min(8, cpus-1)); determinism is

@@ -29,15 +29,23 @@ weights through `update_variables`, as the JAX engine keeps a cast copy of
 its variables (`engine.py:129-155`): the caller's module (a generator in
 training, say) is never moved, switched to `eval()` or cast.
 
-The JAX engine's `mesh=` sharding of the tile batch is not ported
-(multi-card work is ROADMAP Queue 1 item 7), nor is `run_images`'
-`post_name` contract, which keys a compile cache that eager PyTorch does
-not have.
+`devices=` is the JAX engine's `mesh=`: the tile batch of every chunk is
+split evenly over a list of devices, one copy of the module on each (kept
+in step by `update_variables`), the chunk granularity is the device count
+(`engine.py:194`; 4 without), every device's forward is issued before any
+result is waited on, and the outputs are gathered to the first device
+before the float32 blend.  The chunk's values are the one-device engine's:
+the tiles are independent, and `batchMax`, the one batch-coupled step, is
+taken over the whole gathered chunk, as JAX's max over a sharded batch is.
+A video tile's carry stays on the device that runs it.
+
+`run_images`' `post_name` contract is not ported: it keys a compile cache
+that eager PyTorch does not have.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +53,7 @@ import torch
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.inference.tiling import axis_plan
 from uncltmo_tpu_torch.models.unet import video_apply
+from uncltmo_tpu_torch.parallel.mesh import get_mesh
 
 # Plans above this many tiles run in equalised chunks of ~120 tiles
 # (`engine.py:43`, `:174-201`).
@@ -77,47 +86,70 @@ class TileEngine:
       dtype: compute dtype of the forward; the blend is always float32.
         A float32 engine on the card turns TF32 off (`disable_tf32`).
       device: "cuda" by default; tests pass "cpu".
+      devices: a list of devices to split every chunk over (the JAX
+        engine's `mesh=`), the first of them holding the plan, the canvas
+        and the result; `device` is then not read.
     """
 
     def __init__(self, model: torch.nn.Module, tile: int = params.TILE,
                  overlap: int = params.TILE_OVERLAP,
                  chunk: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-        self.device = torch.device(device)
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 devices: Optional[Sequence] = None):
+        self.mesh = None if devices is None else get_mesh(devices=devices)
+        self.devices = self.mesh or [torch.device(device)]
+        self.device = self.devices[0]
         if dtype == torch.float32:
-            disable_tf32(self.device)
+            for d in self.devices:
+                disable_tf32(d)
         self.tile = tile
         self.overlap = overlap
         self.chunk = chunk
         self.dtype = dtype
-        self.model = copy.deepcopy(model).to(self.device).eval()
+        self.models = [self._copy(model, d, dtype) for d in self.devices]
+        self.model = self.models[0]
+        # over a mesh the gathered chunk takes batchMax's max (`_forward`)
+        self._batch_max = (self.mesh is not None
+                           and getattr(model, "stretch_g", "") == "batchMax")
+        if self._batch_max:
+            for m in self.models:
+                m.stretch_g = "none"
+        self._plans: dict = {}
+
+    @staticmethod
+    def _copy(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
+        """The engine's own copy of `model` on `device`, in eval mode."""
+        m = copy.deepcopy(model).to(device).eval()
         if dtype != torch.float32:
             # every float32 leaf of the JAX engine's variables once
             # (`engine.py:129-155`): the parameters and batch norm's running
             # statistics, which the norm reads back as float32; the GCN's
             # relative-position buffer (no JAX variable) stays float32 for
             # the float32 KNN
-            for p in self.model.parameters():
+            for p in m.parameters():
                 p.data = p.data.to(dtype)
-            for m in self.model.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    m.running_mean = m.running_mean.to(dtype)
-                    m.running_var = m.running_var.to(dtype)
-        self._plans: dict = {}
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    mod.running_mean = mod.running_mean.to(dtype)
+                    mod.running_var = mod.running_var.to(dtype)
+        return m
 
     def update_variables(self, state_dict) -> None:
         """Copy new weights (a state dict of the model's layout, on any
-        device) into the engine's module, each cast to the dtype of the
-        tensor it replaces: parameters and running statistics to `dtype`,
-        the other float32 buffers stay float32 (`engine.py:144-155`)."""
+        device) into the engine's module on every device, each cast to the
+        dtype of the tensor it replaces: parameters and running statistics
+        to `dtype`, the other float32 buffers stay float32
+        (`engine.py:144-155`)."""
         with torch.no_grad():
-            self.model.load_state_dict(state_dict, strict=True)
+            for m in self.models:
+                m.load_state_dict(state_dict, strict=True)
 
     def _chunk_for(self, n: int) -> int:
         """Tiles per conv batch for an n-tile plan (`engine.py:174-201`):
-        the explicit `chunk` rounded up to 4 and capped at the padded plan;
-        else one batch for n <= 120, equalised chunks of ~120 above."""
-        gran = 4
+        the explicit `chunk` rounded up to the granularity (the device
+        count over a mesh, else 4) and capped at the padded plan; else one
+        batch for n <= 120, equalised chunks of ~120 above."""
+        gran = len(self.mesh) if self.mesh is not None else 4
         if self.chunk is not None:
             return min(_round_up(self.chunk, gran), _round_up(n, gran))
         if n > STREAM_TILE_THRESHOLD:
@@ -145,13 +177,28 @@ class TileEngine:
 
     def _forward(self, tiles: torch.Tensor) -> torch.Tensor:
         """(N, t, t) image tiles or (N, T, t, t) video tiles -> float32
-        generator outputs of the same shape."""
+        generator outputs of the same shape.  Over a mesh: the tiles split
+        evenly, every device's forward issued before any output is read,
+        the outputs gathered to the first device."""
+        outs = []
         with torch.no_grad():
-            x = tiles.unsqueeze(-3).to(self.dtype)
-            if tiles.dim() == 4:
-                out, _ = video_apply(self.model, x, with_features=False)
-            else:
-                out, _ = self.model(x)
+            for model, dev, part in zip(self.models, self.devices,
+                                        tiles.tensor_split(len(self.devices))):
+                if not len(part):
+                    continue
+                x = part.to(dev, non_blocking=True).unsqueeze(-3)
+                x = x.to(self.dtype)
+                if tiles.dim() == 4:
+                    out, _ = video_apply(model, x, with_features=False)
+                else:
+                    out, _ = model(x)
+                outs.append(out)
+            out = outs[0] if len(outs) == 1 else torch.cat(
+                [o.to(self.device) for o in outs])
+            if self._batch_max:
+                # the model's x / x.max() of every frame, over the chunk
+                dims = (0,) + tuple(range(out.dim() - 3, out.dim()))
+                out = out / out.amax(dim=dims, keepdim=True)
         return out.float().squeeze(-3)
 
     def _cut(self, image: torch.Tensor, oy, ox) -> torch.Tensor:

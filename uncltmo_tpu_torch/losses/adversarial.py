@@ -10,6 +10,16 @@ index among equal scores, as `jnp.argmax` does.  `contrastive_d_loss` and
 float32 logits and features and compute in float32, as the JAX package
 does; the relativistic loss compares logits that differ by far less than a
 bfloat16 step of their size.
+
+Under a process group (`parallel/mesh.py`) the terms that couple the batch
+see the global batch: `contrastive_d_loss` sets the gathered real logits
+against the gathered fake ones (the same value on every rank), and
+`info_nce2` / `pseudo_label_loss` rank the gathered naturalness scores and
+take the chosen sample or patch from whichever rank holds it.  The means
+over samples (`nce`, `info_nce2`, `mean_*_l1`, `pseudo_label_loss`,
+`tv_loss`) are then taken over the rank's own rows: each rank's value is its
+share, and the mean over the ranks is the one-process loss, which is what
+the step's gradient mean needs.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import torch
 from uncltmo_tpu_torch.metrics.tmqi import batched_naturalness
 from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.windows import contrast_map
+from uncltmo_tpu_torch.parallel.mesh import all_gather_batch, gather_rows
 
 
 @float32_island
@@ -27,8 +38,8 @@ def contrastive_d_loss(real_logits: torch.Tensor,
     real logit competes against every fake logit, and each negated fake
     logit against every negated real one;
     loss_half(t1, t2) = mean_i CE([t1_i, t2_0..t2_m], 0)."""
-    r = real_logits.reshape(-1)
-    f = fake_logits.reshape(-1)
+    r, f = all_gather_batch(real_logits.reshape(-1),
+                            fake_logits.reshape(-1))
 
     def loss_half(t1, t2):
         logits = torch.cat([t1[:, None],
@@ -77,11 +88,11 @@ def info_nce2(fea_fake: torch.Tensor, fake: torch.Tensor, k: float,
     every sample's positive, those of the least natural its negative.
     fea_fake: (B, F, h, w); fake: (B, 1, H, W) in [0, 1]."""
     with torch.no_grad():
-        scores = batched_naturalness(fake.detach()[:, 0] * 255.0)
-        i_best = torch.argmax(scores)
-        i_worst = torch.argmin(scores)
-    fea_pos = fea_fake[i_best][None].expand_as(fea_fake)
-    fea_neg = fea_fake[i_worst][None].expand_as(fea_fake)
+        scores = all_gather_batch(
+            batched_naturalness(fake.detach()[:, 0] * 255.0))
+        picks = torch.stack([torch.argmax(scores), torch.argmin(scores)])
+    fea_pos, fea_neg = (f[None].expand_as(fea_fake)
+                        for f in gather_rows(fea_fake, picks))
     return nce(fea_fake, fea_pos, fea_neg, k, c, loss_type)
 
 
@@ -114,9 +125,9 @@ def pseudo_label_loss(fake: torch.Tensor, split: int = 2) -> torch.Tensor:
     patches = fake.reshape(b, split, ps, split, ps).permute(0, 1, 3, 2, 4)
     patches = patches.reshape(-1, 1, ps, ps)
     with torch.no_grad():
-        best = torch.argmax(batched_naturalness(
-            patches.detach()[:, 0] * 255.0))
-    pseudo = patches[best][None]
+        best = torch.argmax(all_gather_batch(batched_naturalness(
+            patches.detach()[:, 0] * 255.0)))[None]
+    pseudo = gather_rows(patches, best)
 
     m = _spatial_mean(patches)                       # (P, 1)
     m_p = _spatial_mean(pseudo)                      # (1, 1)

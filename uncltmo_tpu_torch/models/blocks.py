@@ -41,6 +41,7 @@ from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights, weights_key)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype, no_autocast
+from uncltmo_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
 
 
 def activation_fn(name: str):
@@ -60,7 +61,13 @@ class BatchNorm(nn.BatchNorm2d):
     statistics.  Statistics and the normalisation are float32 whatever the
     compute dtype (autocast off, the input as float32); the result has the
     input's dtype.  A bfloat16 serving engine holds bfloat16 running
-    statistics, as the JAX engine does, and they are read as float32."""
+    statistics, as the JAX engine does, and they are read as float32.
+
+    Under a process group a training forward takes the global batch's
+    statistics, as the JAX step's mean over a sharded batch does
+    (`nn.SyncBatchNorm` semantics): the sums and the sums of squared
+    deviations are all-reduced in float32, differentiably, and the running
+    statistics move alike on every rank."""
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=0.1)
@@ -69,11 +76,31 @@ class BatchNorm(nn.BatchNorm2d):
         with no_autocast():
             if train:
                 self.num_batches_tracked.add_(1)
-            y = F.batch_norm(x.float(), self.running_mean.float(),
-                             self.running_var.float(), self.weight.float(),
-                             self.bias.float(), training=train,
-                             momentum=self.momentum, eps=self.eps)
+            if train and rank_world()[1] > 1:
+                y = self._global_batch_norm(x.float())
+            else:
+                y = F.batch_norm(x.float(), self.running_mean.float(),
+                                 self.running_var.float(),
+                                 self.weight.float(), self.bias.float(),
+                                 training=train, momentum=self.momentum,
+                                 eps=self.eps)
         return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training batch norm over every rank's rows, two-pass in
+        float32."""
+        n = x.numel() // x.shape[1] * rank_world()[1]
+        dims = (0, 2, 3)
+        mean = all_reduce_sum(x.sum(dims)) / n
+        xc = x - mean[None, :, None, None]
+        var = all_reduce_sum((xc * xc).sum(dims)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / (n - 1)))
+        inv = torch.rsqrt(var + self.eps)
+        return (xc * (inv * self.weight.float())[None, :, None, None]
+                + self.bias.float()[None, :, None, None])
 
 
 class InstanceNorm(nn.Module):

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.ops.resize import bicubic_resize
+from uncltmo_tpu_torch.parallel.mesh import rank_world
 
 
 def sincos_pos_embed_2d(embed_dim: int, grid_size) -> np.ndarray:
@@ -93,7 +94,10 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
     Bernoulli(keep) draw per sample.  The draw comes from `generator` (on
     the generator's device, then moved to x's), or, when `masks` is given,
     is the next item of that iterator: a (B,) tensor of zeros and ones, so
-    that a caller can replay fixed masks."""
+    that a caller can replay fixed masks.  Under a process group every rank
+    draws the global batch's mask from its generator (the same on every
+    rank) and keeps its own rows, so a rank drops what the one-process run
+    drops in those rows; replayed masks are the rank's own."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
@@ -104,8 +108,10 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         if generator is None:
             raise ValueError("drop_path: a training forward needs a "
                              "torch.Generator (or masks)")
-        mask = torch.rand(b, generator=generator,
-                          device=generator.device) < keep
+        rank, world = rank_world()
+        mask = torch.rand(b * world, generator=generator,
+                          device=generator.device)[rank * b:(rank + 1) * b]
+        mask = mask < keep
     mask = mask.to(device=x.device, dtype=x.dtype)
     return x * mask.reshape(b, 1, 1, 1) / keep
 

@@ -54,6 +54,7 @@ from uncltmo_tpu_torch.models.gcn import GCNBlock
 from uncltmo_tpu_torch.ops.precision import no_autocast
 from uncltmo_tpu_torch.ops.preprocess import crop_center_batch
 from uncltmo_tpu_torch.ops.windows import adaptive_avg_pool_1, contrast_map
+from uncltmo_tpu_torch.parallel.mesh import global_max
 
 Carry = Optional[List[torch.Tensor]]
 
@@ -177,7 +178,9 @@ class UNetTMO(nn.Module):
             x_out = blocks.last_layer_fn(self.last_layer)(
                 self.outc(up_x.to(self.outc.conv.weight.dtype)))
         if self.stretch_g == "batchMax":
-            x_out = x_out / x_out.max()
+            # over the global batch in a training forward under a process
+            # group, as the JAX step's max over a sharded batch
+            x_out = x_out / (global_max(x_out) if train else x_out.max())
         elif self.stretch_g == "instanceMinMax":
             flat = x_out.reshape(x_out.shape[0], -1)
             xmax = flat.max(dim=1).values.reshape(-1, 1, 1, 1)

@@ -1,6 +1,7 @@
 """Triton kernels of K1, forward and backward (see `concat_skip.py`).
 Imported only by the CUDA branch of `fused_concat_skip`, so that CPU-only
 installs never import triton."""
+import torch
 import triton
 import triton.language as tl
 
@@ -71,13 +72,19 @@ def _grid(x2):
     return plane, (triton.cdiv(plane, _BLOCK), b)
 
 
+# Triton launches on the current card's current stream: each launch makes
+# the tensors' card current, so that a module on another card than the
+# current one (an engine over several devices) runs its kernels in order
+# with its own stream
 def launch(x2, x1, out, eps: float) -> None:
     plane, grid = _grid(x2)
-    _concat_skip_kernel[grid](x2, x1, out, plane, eps, BLOCK=_BLOCK,
-                              num_warps=4)
+    with torch.cuda.device(x2.device):
+        _concat_skip_kernel[grid](x2, x1, out, plane, eps, BLOCK=_BLOCK,
+                                  num_warps=4)
 
 
 def launch_backward(x2, g, dx2, eps: float) -> None:
     plane, grid = _grid(x2)
-    _concat_skip_bwd_kernel[grid](x2, g, dx2, plane, eps, BLOCK=_BLOCK,
-                                  num_warps=4, enable_fp_fusion=False)
+    with torch.cuda.device(x2.device):
+        _concat_skip_bwd_kernel[grid](x2, g, dx2, plane, eps, BLOCK=_BLOCK,
+                                      num_warps=4, enable_fp_fusion=False)

@@ -186,11 +186,14 @@ def _launch(x, w1, b1, w2, b2, packed):
     if packed is None:
         packed = pack_double_conv_weights(w1, b1, w2, b2)
     y = torch.empty((b, c2, h - 4, w - 4), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.uncltmo_double_conv3x3(
-        x.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(),
-        packed.w2.data_ptr(), packed.b2.data_ptr(), y.data_ptr(), b, cin, h,
-        w, c1, c2, _DTYPE_CODE[x.dtype], stream)
+    # the launch and its shared-memory attribute go to the current card:
+    # make it x's, whichever card the caller had current
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.uncltmo_double_conv3x3(
+            x.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(),
+            packed.w2.data_ptr(), packed.b2.data_ptr(), y.data_ptr(), b,
+            cin, h, w, c1, c2, _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError("fused_double_conv3x3 launch failed: "
                            + lib.uncltmo_cuda_error_string(err).decode())

@@ -26,6 +26,14 @@ A batch-norm generator's running statistics move as in the JAX step
 generator forward updates them, and the G phase's forward starts from that
 update and updates them again, two momentum updates a step, with no
 gradient through them.
+
+Under a process group (`parallel/mesh.py`) each rank takes its rows of the
+global batch, and the step is the one-process step on the global batch:
+the drop path, batch norm, `batchMax` and the loss terms that couple the
+batch see the global batch through differentiable collectives, the D and G
+gradient lists are averaged over the ranks before each Adam update (by
+hand: `torch.autograd.grad` bypasses DDP's hooks), so every rank applies
+the same update, and the logs come out global and equal on every rank.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from uncltmo_tpu_torch.losses.struct import struct_loss_pyramid
 from uncltmo_tpu_torch.models.discriminator import SimpleDiscriminator
 from uncltmo_tpu_torch.models.unet import UNetTMO, video_apply
 from uncltmo_tpu_torch.ops.precision import float32_island
+from uncltmo_tpu_torch.parallel.mesh import all_reduce_mean_, reduce_logs
 from uncltmo_tpu_torch.training.state import TrainState, apply_updates
 
 
@@ -198,6 +207,7 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
                 err_d = d_weight * adv.contrastive_d_loss(d_real_pre,
                                                           d_fake_pre)
             grads = torch.autograd.grad(err_d, d_params)
+            all_reduce_mean_(grads)
             for p, g in zip(d_params, grads):
                 p.grad = g
             apply_updates(state.opt_D, d_lr)
@@ -210,7 +220,7 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
 
         state.step += 1
         if pretrain:
-            return state, logs
+            return state, reduce_logs(logs)
 
         # ---- G update against the UPDATED D (`GanTrainer.py:263-291`)
         with autocast():
@@ -240,6 +250,7 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
             # loss): the JAX step differentiates the constant and still
             # applies Adam to the zero gradients, so warm moments move G
             grads = [torch.zeros_like(p) for p in g_params]
+        all_reduce_mean_(grads)
         for p, g in zip(g_params, grads):
             p.grad = g
         apply_updates(state.opt_G, g_lr)
@@ -259,7 +270,7 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
             sizes[top] = sizes.get(top, 0) + g.numel()
         for top in sums:
             logs[f"gradG/{top}"] = sums[top] / sizes[top]
-        return state, logs
+        return state, reduce_logs(logs)
 
     return train_step
 

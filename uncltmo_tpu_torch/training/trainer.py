@@ -37,8 +37,20 @@ What the port decides for itself:
   the training thread inside the summary, so nothing changes G while it
   reads the live weights; it copies them into its engine's own module.
 
-Not ported yet, refused by name: more than one card (ROADMAP Queue 1
-item 7).
+* More than one card (`data_parallel` N > 1) runs as N processes in one
+  `torch.distributed` group, started by the training CLIs, by torchrun or
+  by `parallel.mesh.launch`, one card a rank (gloo ranks sharing a card,
+  or on the CPU, where there are fewer).  A `GanTrainer` is one rank:
+  `data_parallel` 0 takes its group's size, one outside a group (the
+  CLIs' 0 is the JAX rule, every visible card when the batch divides).
+  Every rank builds the same seeded pipeline and keeps its
+  rows of each global batch (`parallel.mesh.shard_batch`: whole clips), so
+  the stream and a resume are those of one process; the step
+  (`training/train_step.py`) is the one-process step on the global batch,
+  and every rank holds the same state after it.  Rank 0 alone writes the
+  JSONL, the checkpoints, the plots and the sample grid, and runs the
+  Tester and the final assessment, while the others wait at a barrier;
+  every rank loads a checkpoint on resume.
 """
 from __future__ import annotations
 
@@ -63,6 +75,10 @@ from uncltmo_tpu_torch.models.discriminator import make_discriminator
 from uncltmo_tpu_torch.models.unet import (bottleneck_grid, make_generator,
                                            reference_normal_init_,
                                            seeded_init_)
+from uncltmo_tpu_torch.parallel.mesh import (barrier, rank_device,
+                                             rank_world, replicate_tree,
+                                             shard_batch, state_tensors,
+                                             trainer_data_parallel)
 from uncltmo_tpu_torch.training.state import TrainState, lr_schedule
 from uncltmo_tpu_torch.training.train_step import (LossConfig,
                                                    make_train_step,
@@ -81,17 +97,15 @@ class GanTrainer:
         self.opt = opt
         self.video = video
         self.tester = tester
-        self.device = torch.device(device)
         self.epoch = 0
         self.num_iter = 0
 
         # the data-parallel request first, before any expensive init
-        # (`trainer.py:49-66`)
-        n_req = int(opt.data_parallel)
-        if n_req > 1:
-            raise NotImplementedError(
-                f"data_parallel={n_req}: training on more than one card is "
-                "not ported yet (ROADMAP Queue 1 item 7)")
+        # (`trainer.py:49-66`): a trainer is one rank of its process group
+        self.rank, self.world = rank_world()
+        trainer_data_parallel(opt.data_parallel, opt.batch_size, device)
+        self.device = (rank_device(device, self.rank, self.world)
+                       if self.world > 1 else torch.device(device))
 
         if opt.add_frame:
             # the reference's add_frame training path is inconsistent (the
@@ -154,6 +168,7 @@ class GanTrainer:
                                           device=self.device,
                                           compute_dtype=self.compute_dtype)
         self.state = TrainState.create(gen, disc)
+        replicate_tree(state_tensors(self.state))
         # the sample grid's generator, on the step's device; touched on the
         # host worker only
         self._grid_gen = copy.deepcopy(gen).eval().requires_grad_(False)
@@ -170,7 +185,8 @@ class GanTrainer:
         # (`Tester.py:126-148`), else from the training source
         self.test_source = self._build_test_source()
 
-        self.logger = MetricsLogger(opt.output_dir)
+        self.logger = (MetricsLogger(opt.output_dir) if self.rank == 0
+                       else None)
         self._ckpt_saver = ckpt.AsyncSaver() if opt.async_checkpoint else None
         self._host_worker = AsyncHostWorker(max_pending=8)
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -324,6 +340,8 @@ class GanTrainer:
             it, batch = idx_batch
             batch = self._maybe_add_weight_channel(
                 batch, pretrain, num_iter=base_iter + it)
+            if self.world > 1:
+                batch = shard_batch(batch, self.rank, self.world)
             return it, self._put(batch)
 
         # seconds of the loop: `wait` blocked on the prepare queue, `dispatch`
@@ -347,12 +365,13 @@ class GanTrainer:
                 d_lr, stage=stage, pretrain=pretrain)
             timings["dispatch_s"] += time.perf_counter() - t_mark
             timings["steps"] += 1
-            if self.opt.verbose and not pretrain:
+            if self.opt.verbose and not pretrain and self.rank == 0:
                 print(f"iter {self.num_iter}  fake "
                       f"min {float(logs['fake/min']):.4f}  "
                       f"max {float(logs['fake/max']):.4f}  "
                       f"mean {float(logs['fake/mean']):.4f}", flush=True)
-            if self.num_iter % self.opt.log_every == 0 or it == steps:
+            if self.rank == 0 and (self.num_iter % self.opt.log_every == 0
+                                   or it == steps):
                 t_mark = time.perf_counter()
                 self._host_worker.submit(
                     self._log_async, logs, self.num_iter, epoch, pretrain,
@@ -360,7 +379,9 @@ class GanTrainer:
                 timings["log_s"] += time.perf_counter() - t_mark
             if not pretrain and it % summary_every == 0:
                 t_mark = time.perf_counter()
-                self.print_epoch_summary(epoch, it, logs)
+                if self.rank == 0:
+                    self.print_epoch_summary(epoch, it, logs)
+                barrier()
                 timings["summary_s"] += time.perf_counter() - t_mark
 
     @staticmethod
@@ -431,6 +452,10 @@ class GanTrainer:
         if self._ckpt_saver is not None:
             self._ckpt_saver.save(models_dir, epoch, epoch_iter, self.state,
                                   extra_meta=save_meta)
+            if self.world > 1:
+                # on disk before the ranks pass the barrier: none of them
+                # finds the file half written
+                self._ckpt_saver.wait()
         else:
             ckpt.save_train_state(models_dir, epoch, epoch_iter, self.state,
                                   extra_meta=save_meta)
@@ -505,7 +530,11 @@ class GanTrainer:
         from a copy of the generator, and the optional FID of the renders
         against `fid_real_path` (`GanTrainer.save_data_for_assessment`,
         `GanTrainer.py:546-580`), the Inception trunk on the trainer's
-        device."""
+        device.  Under a process group rank 0 alone renders; the others
+        wait at a barrier and return None."""
+        if rank_world()[0]:
+            barrier()
+            return None
         from uncltmo_tpu_torch.inference.runner import InferenceRunner
         model_params = get_model_params(
             self.opt.result_dir_prefix or "model",
@@ -544,6 +573,7 @@ class GanTrainer:
                 # a bad weights path or an empty directory must not end
                 # the run (the JAX trainer prints the same line)
                 print(f"FID skipped: {type(e).__name__}: {e}")
+        barrier()
         return outs
 
     def load_checkpoint(self):
@@ -565,5 +595,7 @@ class GanTrainer:
                 if self._resume_iter >= self.pipeline.steps_per_epoch():
                     self.epoch += 1
                     self._resume_iter = 0
-            print(f"restored checkpoint {path} (epoch {self.epoch}, "
-                  f"iter {self._resume_iter}, num_iter {self.num_iter})")
+            replicate_tree(state_tensors(self.state))
+            if self.rank == 0:
+                print(f"restored checkpoint {path} (epoch {self.epoch}, "
+                      f"iter {self._resume_iter}, num_iter {self.num_iter})")
