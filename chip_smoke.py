@@ -109,7 +109,20 @@ One JSON line per phase:
     tmqi over 4 pairs on the card against the CPU and btmqi over the
     renders; BTMQI's features of a 1080p render of the video phase, card
     vs CPU, with the entropy bins that differ, and its ms a frame;
-20. the kernels line (launches summed over all paths; K2 under autograd
+20. exr: cv2's version and whether its build has OpenEXR; each decoded
+    OpenEXR compression (NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44, B44A) of a
+    synthetic 1080x1920 frame in HALF and FLOAT, written by cv2.imwrite
+    where cv2 has OpenEXR (else by the numpy encoders of
+    `tests/test_torch_exr_codecs.py`), read by the port's `read_exr` and
+    held bit for bit against cv2.imread (else against the encoders'
+    input), each read timed (median of 3) beside the port's `.hdr` reader
+    and cv2's; DWAA / DWAB refused by name with cv2's error from the input
+    recorded; all of this on the host in a subprocess started after the
+    device record.  On the card: the published generator in float32 over
+    the PIZ HALF, PXR24 FLOAT, B44A HALF and a tiled PIZ HALF file through
+    `run_on_path`, against their `.npy` twins (PNGs within one level),
+    K1 / K2 launches, files fps beside end_to_end's `.hdr` files fps;
+21. the kernels line (launches summed over all paths; K2 under autograd
     is an entry of its own per dtype, with its backward's bound, and so
     is K1's backward), the nvidia-smi line, and `{"ok": true, ...}`
     last.
@@ -525,21 +538,20 @@ def synthetic_hdr(rng, h: int, w: int):
 
 
 def profile_call(torch, dname, fn, path: str = "image", top: int = 10) -> None:
-    """Device time of one warm call of `fn` by kernel (torch.profiler), and
-    the device's idle share over the call's wall time."""
+    """Device time of one warm call of `fn` by kernel (torch.profiler, the
+    card's activity only: tracing the host's ops as well cost seconds a
+    call), and the device's idle share over the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        # device-side events only: the CPU ops that launched them carry
-        # the same time again
+        # device-side events only
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total",
@@ -3156,6 +3168,237 @@ def phase_assessment(torch, seed, video_png: str) -> dict:
     return counts
 
 
+# the exr phase: every decoded OpenEXR compression at 1080p in HALF and
+# FLOAT, written by cv2 where its build has OpenEXR (else by the tests'
+# numpy encoders), read by the port against cv2; then four of them tone-
+# mapped on the card.  The host side runs in a subprocess beside the card
+# phases (`start_exr_host`), so its encodes and timed reads add no wall time.
+EXR_CODECS = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A")
+EXR_REFUSED = ("DWAA", "DWAB")
+EXR_TYPES = {"HALF": "float16", "FLOAT": "float32"}
+EXR_READS = 3                 # timed reads a file (the median is kept)
+EXR_TILES = (256, 256)        # the tiled PIZ HALF file, one level
+EXR_CARD = (("PIZ", "HALF"), ("PXR24", "FLOAT"), ("B44A", "HALF"))
+EXR_HOST_TIMEOUT_S = 600.0
+
+
+def cv2_openexr():
+    """cv2 with OPENCV_IO_ENABLE_OPENEXR set before its import (as
+    `uncltmo_tpu/utils/io.py:14` sets it): (module or None, record)."""
+    os.environ["OPENCV_IO_ENABLE_OPENEXR"] = "1"
+    try:
+        import cv2
+    except ImportError as e:
+        return None, {"cv2": None, "cv2_openexr": False, "why": str(e)}
+    line = next((ln.strip() for ln in cv2.getBuildInformation().splitlines()
+                 if "OpenEXR" in ln), "")
+    rec = {"cv2": cv2.__version__, "build_line": line,
+           "cv2_openexr": bool(line) and not line.split(":", 1)[-1].strip()
+           .startswith("NO")}
+    if rec["cv2_openexr"] and not hasattr(cv2, "IMWRITE_EXR_COMPRESSION"):
+        rec.update(cv2_openexr=False, why="no IMWRITE_EXR_COMPRESSION flag")
+    return (cv2 if rec["cv2_openexr"] else None), rec
+
+
+def median_s(fn, n: int = EXR_READS):
+    import numpy as np
+    times, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def exr_host(out_dir: str, seed: int) -> None:
+    """The exr phase's host side (a subprocess of `main`): writes
+    `host.json` in out_dir.  Each decoded compression in HALF and FLOAT
+    at 1080p: written by cv2.imwrite where cv2 has OpenEXR (read_exr held
+    bit for bit against cv2.imread, BGR -> RGB), else by the tests'
+    encoders (held against their input: exact, PXR24 FLOAT as its 24-bit
+    rounding, B44 HALF recorded); each read timed (median of 3) beside
+    the port's .hdr reader and cv2's.  DWAA / DWAB (cv2 only): refused by
+    read_exr by name, cv2's max-abs from the input recorded.  The card's
+    inputs (EXR_CARD and a tiled PIZ HALF file) and their .npy twins go to
+    out_dir/card and out_dir/twins first; `card.json` marks them done."""
+    import traceback
+    try:
+        _exr_host(out_dir, seed)
+    except BaseException:
+        with open(os.path.join(out_dir, "host.json"), "w") as f:
+            json.dump({"error": traceback.format_exc()}, f)
+        raise
+
+
+def _exr_host(out_dir: str, seed: int) -> None:
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_exr_codecs as codecs
+    from uncltmo_tpu_torch.utils.io import (read_exr, read_radiance_hdr,
+                                            write_radiance_hdr)
+    cv2, info = cv2_openexr()
+    rgb = synthetic_hdr(np.random.default_rng(seed + 70), *FRAME_HW)
+    hdr = os.path.join(out_dir, "frame.hdr")
+    write_radiance_hdr(hdr, rgb)
+    info["hdr_read_ms"] = 1e3 * median_s(lambda: read_radiance_hdr(hdr))[0]
+    card, twins = os.path.join(out_dir, "card"), os.path.join(out_dir, "twins")
+    os.makedirs(card)
+    os.makedirs(twins)
+
+    def write(path, comp, tname, tiles=None):
+        planes = {c: rgb[..., i].astype(EXR_TYPES[tname])
+                  for i, c in enumerate("RGB")}
+        if cv2 is not None and tiles is None:
+            bgr = np.stack([planes[c] for c in "BGR"], -1).astype(np.float32)
+            ok = cv2.imwrite(path, bgr, [
+                cv2.IMWRITE_EXR_TYPE, {"HALF": 1, "FLOAT": 2}[tname],
+                cv2.IMWRITE_EXR_COMPRESSION,
+                {**codecs.COMPRESSION, "DWAA": 8, "DWAB": 9}[comp]])
+            if not ok:
+                raise AssertionError(f"cv2.imwrite failed for {comp}")
+            return planes, "cv2"
+        codecs.write_exr(path, planes, comp, tiles=tiles)
+        return planes, "tests_encoder"
+
+    def want_of(planes, comp):
+        return codecs._rgb(codecs._24(planes) if comp == "PXR24" else planes)
+
+    # the card's files first, so that the card phase need not wait for the
+    # timed reads
+    for comp, tname, tiles in [c + (None,) for c in EXR_CARD] + [
+            ("PIZ", "HALF", EXR_TILES + (codecs.ONE_LEVEL, 0))]:
+        stem = f"{'tiled_' if tiles else ''}{comp}_{tname}"
+        path = os.path.join(card, stem + ".exr")
+        write(path, comp, tname, tiles)
+        np.save(os.path.join(twins, stem + ".npy"), read_exr(path))
+    with open(os.path.join(out_dir, "card.json"), "w") as f:
+        json.dump(sorted(os.listdir(card)), f)
+    rows = []
+    for comp in EXR_CODECS + (EXR_REFUSED if cv2 is not None else ()):
+        for tname in EXR_TYPES:
+            path = os.path.join(out_dir, f"{comp}_{tname}.exr")
+            planes, writer = write(path, comp, tname)
+            row = {"codec": comp, "type": tname, "writer": writer,
+                   "bytes": os.path.getsize(path)}
+            ref = None
+            if cv2 is not None:
+                ms, bgr = median_s(lambda: cv2.imread(
+                    path, cv2.IMREAD_ANYDEPTH | cv2.IMREAD_COLOR))
+                row["cv2_reads"] = bgr is not None
+                if bgr is not None:
+                    row["cv2_read_ms"] = 1e3 * ms
+                    ref = np.ascontiguousarray(bgr[..., ::-1])
+                    row["cv2_max_abs_from_input"] = float(np.abs(
+                        ref - codecs._rgb(planes)).max())
+            if comp in EXR_REFUSED:
+                try:
+                    read_exr(path)
+                except NotImplementedError as e:
+                    row["refused"] = str(e)
+                if "ROADMAP Queue 3" not in row.get("refused", ""):
+                    raise AssertionError(f"{comp} was not refused by name")
+                rows.append(row)
+                continue
+            row["read_ms"], got = median_s(lambda: read_exr(path))
+            row["read_ms"] *= 1e3
+            row["max_abs_from_input"] = float(np.abs(
+                got - codecs._rgb(planes)).max())
+            if ref is not None:
+                row["equal_to_cv2"] = bool(np.array_equal(
+                    got.view(np.uint32), ref.view(np.uint32)))
+            elif writer == "cv2":
+                raise AssertionError(f"cv2 wrote {comp} {tname} and cannot "
+                                     "read it back")
+            elif not comp.startswith("B44") or tname == "FLOAT":
+                row["equal_to_input"] = bool(np.array_equal(
+                    got.view(np.uint32),
+                    want_of(planes, comp).view(np.uint32)))
+            rows.append(row)
+            os.remove(path)
+    tiled = os.path.join(card, "tiled_PIZ_HALF.exr")
+    ms, got = median_s(lambda: read_exr(tiled))
+    planes = {c: rgb[..., i].astype(np.float16) for i, c in enumerate("RGB")}
+    rows.append({"codec": "PIZ", "type": "HALF", "tiled": list(EXR_TILES),
+                 "writer": "tests_encoder", "bytes": os.path.getsize(tiled),
+                 "read_ms": 1e3 * ms, "equal_to_input": bool(np.array_equal(
+                     got, want_of(planes, "PIZ")))})
+    with open(os.path.join(out_dir, "host.json"), "w") as f:
+        json.dump({"info": info, "rows": rows}, f)
+
+
+def start_exr_host(out_dir: str, seed: int):
+    """The host side of the exr phase, started in its own process."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.exr_host(sys.argv[2], int(sys.argv[3]))",
+         ROOT, out_dir, str(seed)], cwd=ROOT)
+
+
+def phase_exr(torch, seed, out_dir: str, proc, hdr_files_fps: float):
+    """The exr phase on the card: `InferenceRunner` (published generator,
+    float32) over the 1080p PIZ HALF, PXR24 FLOAT, B44A HALF and tiled PIZ
+    HALF files through `run_on_path`, and over their `.npy` twins: PNGs
+    within one level of the twins', K1 / K2 launched, files fps beside the
+    end_to_end phase's `.hdr` files fps.  Then the host side's records:
+    cv2's OpenEXR, every read against cv2 (or the encoders' input) and its
+    ms.  Returns the EXR run's launch counts."""
+    import numpy as np
+    from uncltmo_tpu_torch.config import get_model_params
+    from uncltmo_tpu_torch.inference.runner import InferenceRunner
+    from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(out_dir, "card.json")):
+        if proc.poll() is not None:
+            break
+        if time.perf_counter() - t0 > EXR_HOST_TIMEOUT_S:
+            raise AssertionError("the exr host process wrote no files")
+        time.sleep(0.5)
+    waited_s = time.perf_counter() - t0
+    card, twins = os.path.join(out_dir, "card"), os.path.join(out_dir, "twins")
+    names = [os.path.splitext(n)[0] for n in sorted(os.listdir(card))]
+    if len(names) != len(EXR_CARD) + 1:
+        raise AssertionError(f"exr card files: {names}")
+    lam = os.path.join(out_dir, "lambdas.npy")
+    rng = np.random.default_rng(seed + 71)
+    np.save(lam, {n: float(rng.uniform(100, 1000)) for n in names})
+    runner = InferenceRunner(get_model_params("imageTMO"), None,
+                             state_dict=seeded_init_(UNetTMO(), seed)
+                             .state_dict(), device="cuda")
+    fps, outs = {}, {}
+    for d, src in (("npy", twins), ("exr", card)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs[d] = runner.run_on_path(src, os.path.join(out_dir, "out_" + d),
+                                     lam, scale=1)
+        torch.cuda.synchronize()
+        fps[d] = len(outs[d]) / (time.perf_counter() - t1)
+        launches = read_counts()
+    diffs = {os.path.basename(a): png_diff(a, b)
+             for a, b in zip(outs["exr"], outs["npy"])}
+    emit("exr", files=names, files_fps_exr=fps["exr"],
+         files_fps_npy=fps["npy"], files_fps_hdr_end_to_end=hdr_files_fps,
+         launches=launches, max_uint8_diff_vs_npy=diffs,
+         waited_for_host_s=waited_s)
+    if len(outs["exr"]) != len(names) or max(diffs.values()) > 1:
+        raise AssertionError(f"exr: PNGs {diffs} against the .npy twins")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"exr: a kernel was not launched: {launches}")
+    if proc.wait(timeout=EXR_HOST_TIMEOUT_S) != 0:
+        raise AssertionError("the exr host process failed: " + open(
+            os.path.join(out_dir, "host.json")).read()[-2000:])
+    with open(os.path.join(out_dir, "host.json")) as f:
+        host = json.load(f)
+    emit("exr_cv2", **host["info"])
+    for row in host["rows"]:
+        emit("exr_read", **row)
+    bad = [r for r in host["rows"] if r.get("equal_to_cv2") is False
+           or r.get("equal_to_input") is False]
+    if bad:
+        raise AssertionError(f"exr: read_exr disagrees: {bad}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3178,6 +3421,18 @@ def main(argv=None) -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    exr_dir = tempfile.mkdtemp(prefix="chip_smoke_exr_")
+    exr_proc = start_exr_host(exr_dir, args.seed)
+    try:
+        return run_phases(torch, args, kind, smi, dtypes, exr_dir, exr_proc)
+    finally:
+        if exr_proc.poll() is None:
+            exr_proc.kill()
+            exr_proc.wait()
+        shutil.rmtree(exr_dir, ignore_errors=True)
+
+
+def run_phases(torch, args, kind, smi, dtypes, exr_dir, exr_proc) -> int:
     phase_first_launches(torch)
     k1 = phase_k1(torch, dtypes)
     k2 = phase_k2(torch, dtypes)
@@ -3202,6 +3457,9 @@ def main(argv=None) -> int:
         tester = phase_tester(torch, args.seed, scenes, scene_lams)
         assessment = phase_assessment(torch, args.seed,
                                       os.path.join(shared, VIDEO_RENDER))
+    hdr_fps = next(r["files_fps"] for r in LOG if r["phase"] == "end_to_end"
+                   and r["dtype"] == "float32")
+    exr = phase_exr(torch, args.seed, exr_dir, exr_proc, hdr_fps)
     train = {k: train[k] + trainer[k] + options.get(k, 0)
              + data_parallel["float32"][k] for k in train}
     train16 = {k: v + data_parallel["bfloat16"][k]
@@ -3212,7 +3470,8 @@ def main(argv=None) -> int:
     launches = {d: {k: sum(p[d][k] for p in paths) for k in paths[0][d]}
                 for d in dtypes}
     for k in launches["float32"]:
-        launches["float32"][k] += train[k] + tester[k] + assessment[k]
+        launches["float32"][k] += (train[k] + tester[k] + assessment[k]
+                                   + exr[k])
         launches["bfloat16"][k] += train16[k]
 
     kernels = []

@@ -125,7 +125,7 @@ def _runner_and_lambdas(tmp_path):
 
 
 def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
-    """An `.exr` file in a compression the port does not decode (PIZ) is an
+    """An `.exr` file in a compression the port does not decode (DWAB) is an
     error that names the compression and the ROADMAP, not a silently
     shorter output, in a directory and in a scene; `x.HDR` is skipped, as
     the JAX runner skips it."""
@@ -140,16 +140,16 @@ def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
                               scale=1) == []
     exr = tmp_path / "exr"
     exr.mkdir()
-    write_undecoded_exr(str(exr / "y.exr"), planes, "PIZ")
+    write_undecoded_exr(str(exr / "y.exr"), planes, "DWAB")
     with pytest.raises(NotImplementedError,
-                       match="PIZ compression.*ROADMAP Queue 3"):
+                       match="DWAB compression.*ROADMAP Queue 3"):
         runner.run_on_path(str(exr), str(tmp_path / "o"), lam, scale=1)
     scenes = tmp_path / "scenes"
     (scenes / "y").mkdir(parents=True)
-    write_undecoded_exr(str(scenes / "y" / "000.exr"), planes, "PIZ")
+    write_undecoded_exr(str(scenes / "y" / "000.exr"), planes, "DWAB")
     (scenes / "y" / "001.HDR").write_bytes(b"")
     with pytest.raises(NotImplementedError,
-                       match="PIZ compression.*ROADMAP Queue 3"):
+                       match="DWAB compression.*ROADMAP Queue 3"):
         runner.run_on_video_path(str(scenes), str(tmp_path / "o"), lam)
 
 
