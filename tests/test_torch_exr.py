@@ -11,7 +11,9 @@ with HALF, FLOAT and UINT samples, a data window away from the origin, an
 alpha channel and a luminance-only file, read back bit for bit.  The
 runner tone-maps an `.exr` as it tone-maps the same array saved as `.npy`,
 and the compressions and layouts the reader does not decode are refused by
-name.  PIZ, PXR24, B44(A) and tiled files: `tests/test_torch_exr_codecs.py`.
+name.  PIZ, PXR24, B44(A), DWAA / DWAB and tiled files:
+`tests/test_torch_exr_codecs.py` and `tests/test_torch_exr_dwa.py`;
+luminance/chroma files: `tests/test_torch_exr_chroma.py`.
 """
 import struct
 import zlib
@@ -238,23 +240,47 @@ def test_runner_tone_maps_exr_as_the_same_array_as_npy(tmp_path):
                                   read_png(outs["npy"][0]))
 
 
-def write_undecoded_exr(path, planes: dict, comp: str) -> None:
-    """A NONE file whose header then names `comp` (DWAA or DWAB): enough
-    for the reader to refuse it before it reads a chunk."""
+def write_refused_exr(path, planes: dict, kind: str) -> None:
+    """A NONE file made one the reader refuses before it reads a chunk:
+    `kind` "multi-part" sets the version's multi-part flag, "id<N>" writes
+    the unknown compression id N into the header."""
     write_exr(path, planes, "NONE")
     buf = bytearray(open(path, "rb").read())
-    at = buf.index(b"compression\0compression\0") + 28
-    buf[at] = _COMP[comp][0]
+    if kind == "multi-part":
+        buf[4:8] = struct.pack("<I", 2 | 0x1000)
+    else:
+        at = buf.index(b"compression\0compression\0") + 28
+        buf[at] = int(kind[2:])
     open(path, "wb").write(bytes(buf))
 
 
-@pytest.mark.parametrize("comp", ["DWAA", "DWAB"])
-def test_undecoded_compressions_are_refused_by_name(tmp_path, comp):
+@pytest.mark.parametrize("cid", [10, 255])
+def test_undecoded_compressions_are_refused_by_name(tmp_path, cid):
+    """The format has ten compressions (ids 0-9), all read since DWAA /
+    DWAB (`tests/test_torch_exr_dwa.py`); another id is refused by name."""
     path = str(tmp_path / "c.exr")
-    write_undecoded_exr(path, _planes(4, 4, 4, np.float16), comp)
+    write_refused_exr(path, _planes(4, 4, 4, np.float16), f"id{cid}")
     with pytest.raises(NotImplementedError,
-                       match=f"{comp} compression.*ROADMAP Queue 3"):
+                       match=f"compression id {cid}.*ROADMAP Queue 3"):
         read_hdr_image(path)
+
+
+@pytest.mark.parametrize("comp", ["DWAA", "DWAB"])
+def test_dwa_compressions_are_read(tmp_path, comp):
+    """DWAA / DWAB files of the tests' DWA encoder (a data window away
+    from the origin, alpha run-length coded, coefficients only rounded to
+    half) read back within 1% of the input (the curve, the DCT and half
+    precision); the bit-exact checks against the OpenEXR library are
+    in `tests/test_torch_exr_dwa.py`."""
+    from test_torch_exr_codecs import write_exr as write_any
+    planes = _planes(4, 37, 29, np.float16)
+    path = str(tmp_path / "c.exr")
+    write_any(path, planes, comp, origin=(5, -3), dwa={"level": 0.0})
+    got = read_hdr_image(path)
+    want = np.stack([planes[c].astype(np.float32) for c in "RGB"], -1)
+    assert got.dtype == np.float32 and got.shape == (37, 29, 3)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    assert rel.max() < 0.01, rel.max()
 
 
 def test_tiled_and_multipart_files_are_refused_by_name(tmp_path):
@@ -275,12 +301,38 @@ def test_tiled_and_multipart_files_are_refused_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("names", ["Y RY BY", "RY BY"])
-def test_luminance_chroma_files_are_refused_by_name(tmp_path, names):
-    """Full-resolution RY / BY beside Y (or alone) are refused by name: cv2
-    rebuilds their color, which the port does not yet, and reading Y alone
-    would return a gray image with no error."""
+def test_luminance_chroma_files_are_read(tmp_path, names):
+    """Full-resolution RY / BY beside Y come back as cv2 rebuilds their
+    color (r = (RY + 1) Y, b = (BY + 1) Y, g from the Rec. 709 weights;
+    subsampled chroma and cv2's reads: `tests/test_torch_exr_chroma.py`);
+    RY / BY without Y have no luminance, and cv2 reads no image from them:
+    an error that names the channels."""
     path = str(tmp_path / "yc.exr")
-    write_exr(path, _planes(6, 8, 8, np.float16, names=names.split()), "ZIP")
+    planes = _planes(6, 8, 8, np.float16, names=names.split())
+    write_exr(path, planes, "ZIP")
+    if "Y" not in planes:
+        with pytest.raises(IOError, match="no R, G, B or Y channel"):
+            read_hdr_image(path)
+        return
+    y, ry, by = (planes[n].astype(np.float64) for n in ("Y", "RY", "BY"))
+    r, b = (ry + 1) * y, (by + 1) * y
+    g = (y - b * np.float32(0.06) - r * np.float32(0.33)) / np.float32(0.6)
+    want = np.stack([r, g, b], -1).astype(np.float32)
+    np.testing.assert_array_equal(read_hdr_image(path), want)
+
+
+def test_tiled_subsampled_files_are_refused_by_name(tmp_path):
+    """The format forbids subsampled channels in tiled files; such a file
+    is refused by name rather than read with a guess at its layout."""
+    from test_torch_exr_codecs import ONE_LEVEL
+    from test_torch_exr_codecs import write_exr as write_any
+    path = str(tmp_path / "t.exr")
+    write_any(path, _planes(7, 8, 8, np.float16), "ZIP",
+              tiles=(8, 8, ONE_LEVEL, 0))
+    buf = bytearray(open(path, "rb").read())
+    at = buf.index(b"B\0") + 2 + 8                  # B's x sampling
+    buf[at:at + 8] = struct.pack("<ii", 2, 2)
+    open(path, "wb").write(bytes(buf))
     with pytest.raises(NotImplementedError,
-                       match="luminance/chroma.*ROADMAP Queue 3"):
-        read_hdr_image(path)
+                       match="tiled.*subsampled.*ROADMAP Queue 3"):
+        read_exr(path)

@@ -125,11 +125,11 @@ def _runner_and_lambdas(tmp_path):
 
 
 def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
-    """An `.exr` file in a compression the port does not decode (DWAB) is an
-    error that names the compression and the ROADMAP, not a silently
-    shorter output, in a directory and in a scene; `x.HDR` is skipped, as
-    the JAX runner skips it."""
-    from test_torch_exr import write_undecoded_exr
+    """An `.exr` file of a layout the port does not read (multi-part) is
+    an error that names the layout and the ROADMAP, not a silently shorter
+    output, in a directory and in a scene; `x.HDR` is skipped, as the JAX
+    runner skips it."""
+    from test_torch_exr import write_refused_exr
     runner, lam = _runner_and_lambdas(tmp_path)
     im = _hdr_image(5, 40, 50)
     planes = {c: im[..., i].astype(np.float16) for i, c in enumerate("RGB")}
@@ -140,16 +140,16 @@ def test_runner_refuses_exr_by_name_and_skips_upper_case(tmp_path):
                               scale=1) == []
     exr = tmp_path / "exr"
     exr.mkdir()
-    write_undecoded_exr(str(exr / "y.exr"), planes, "DWAB")
+    write_refused_exr(str(exr / "y.exr"), planes, "multi-part")
     with pytest.raises(NotImplementedError,
-                       match="DWAB compression.*ROADMAP Queue 3"):
+                       match="multi-part.*ROADMAP Queue 3"):
         runner.run_on_path(str(exr), str(tmp_path / "o"), lam, scale=1)
     scenes = tmp_path / "scenes"
     (scenes / "y").mkdir(parents=True)
-    write_undecoded_exr(str(scenes / "y" / "000.exr"), planes, "DWAB")
+    write_refused_exr(str(scenes / "y" / "000.exr"), planes, "multi-part")
     (scenes / "y" / "001.HDR").write_bytes(b"")
     with pytest.raises(NotImplementedError,
-                       match="DWAB compression.*ROADMAP Queue 3"):
+                       match="multi-part.*ROADMAP Queue 3"):
         runner.run_on_video_path(str(scenes), str(tmp_path / "o"), lam)
 
 

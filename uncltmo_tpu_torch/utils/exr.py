@@ -2,16 +2,19 @@
 package reads `.exr` through cv2's OpenEXR codec,
 `uncltmo_tpu/utils/io.py:36-40`).
 
-It reads single-part scanline files and level 0 of single-part tiled files
-(one level, mipmap or ripmap) with HALF, FLOAT and UINT samples under
-NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44 and B44A compression, decoding each
-chunk as the OpenEXR library does (`ImfRle.cpp`, `ImfZip.cpp`,
-`ImfPizCompressor.cpp` with `ImfHuf.cpp` and `ImfWav.cpp`,
-`ImfPxr24Compressor.cpp`, `ImfB44Compressor.cpp`, `ImfTiledMisc.cpp`).
-Every stage works on whole arrays.  The variable-length streams, whose next
-code starts where the last one ends (RLE codes, B44A blocks, the code-length
-table and the Huffman code of PIZ), are walked in lockstep lanes or by
-pointer doubling; no Python loop runs per code, symbol or sample.
+It reads single-part scanline files, with subsampled channels, and level 0
+of single-part tiled files (one level, mipmap or ripmap) with HALF, FLOAT
+and UINT samples under every compression of the format: NONE, RLE, ZIPS,
+ZIP, PIZ, PXR24, B44, B44A, DWAA and DWAB, decoding each chunk as the
+OpenEXR library does (`ImfRle.cpp`, `ImfZip.cpp`, `ImfPizCompressor.cpp`
+with `ImfHuf.cpp` and `ImfWav.cpp`, `ImfPxr24Compressor.cpp`,
+`ImfB44Compressor.cpp`, `ImfDwaCompressor.cpp` in `exr_dwa.py`,
+`ImfTiledMisc.cpp`).  Every stage works on whole arrays.  The
+variable-length streams, whose next code starts where the last one ends
+(RLE codes, B44A blocks, the code-length table and the Huffman code of PIZ
+and DWA), are walked in lockstep lanes or by pointer doubling; no Python
+loop runs per code, symbol or sample.  Luminance/chroma files (`Y`, `RY`,
+`BY`) come back as RGB rebuilt as cv2 rebuilds them.
 """
 from __future__ import annotations
 
@@ -29,16 +32,29 @@ _COMPRESSIONS = {0: ("NONE", 1), 1: ("RLE", 1), 2: ("ZIPS", 1),
                  3: ("ZIP", 16), 4: ("PIZ", 32), 5: ("PXR24", 16),
                  6: ("B44", 32), 7: ("B44A", 32), 8: ("DWAA", 32),
                  9: ("DWAB", 256)}
-_DECODED = ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24", "B44", "B44A")
 _UINT, _HALF, _FLOAT = np.dtype("<u4"), np.dtype("<f2"), np.dtype("<f4")
 _PIXEL_TYPES = {0: _UINT, 1: _HALF, 2: _FLOAT}
 _QUEUE = "ROADMAP Queue 3"
+# Rec. 709, the chromaticities of a file without the attribute (as float32,
+# ImfChromaticities.h): red, green, blue, white (x, y)
+_REC709 = np.array([0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329],
+                   np.float32)
 
 
 class Channel(NamedTuple):
     name: str
     dtype: np.dtype
-    plinear: bool            # B44 codes the channel through its log table
+    plinear: bool            # B44 / DWA code the channel as perceptually linear
+    xs: int = 1              # x and y sampling: a sample at x % xs == 0
+    ys: int = 1              # and y % ys == 0
+
+
+class Chunk(NamedTuple):
+    """A chunk to decode: its bytes, and per channel its (ny_c, nx_c)
+    samples and on which of the chunk's lines it has samples."""
+    data: bytes
+    shapes: list
+    lines: np.ndarray        # (lines, channels) bool
 
 
 def _header(buf: bytes, pos: int) -> tuple[dict, int]:
@@ -58,8 +74,7 @@ def _header(buf: bytes, pos: int) -> tuple[dict, int]:
 
 
 def _channels(raw: bytes) -> list:
-    """A `chlist` value -> [Channel], in the file's (alphabetical) order;
-    subsampled channels are refused."""
+    """A `chlist` value -> [Channel], in the file's (alphabetical) order."""
     out, pos = [], 0
     while raw[pos] != 0:
         end = raw.index(b"\0", pos)
@@ -68,39 +83,80 @@ def _channels(raw: bytes) -> list:
         pos = end + 17
         if ptype not in _PIXEL_TYPES:
             raise IOError(f"channel {name!r}: unknown pixel type {ptype}")
-        if (xs, ys) != (1, 1):
-            raise NotImplementedError(
-                f"channel {name!r} is subsampled ({xs}x{ys}); the port's "
-                f"OpenEXR reader takes full-resolution channels only ({_QUEUE})")
-        out.append(Channel(name, _PIXEL_TYPES[ptype], bool(plinear)))
+        if xs < 1 or ys < 1:
+            raise IOError(f"channel {name!r}: sampling {xs}x{ys}")
+        out.append(Channel(name, _PIXEL_TYPES[ptype], bool(plinear), xs, ys))
     return out
 
 
+def _samples(s: int, a: int, n: int) -> int:
+    """ImfMisc's numSamples: how many x in [a, a + n) have x % s == 0."""
+    return (a + n - 1) // s - -(-a // s) + 1 if n > 0 else 0
+
+
 def _wanted(path: str, names: list) -> tuple:
-    """The channels that make the RGB image: R, G, B, else a luminance-only
-    `Y` three times, as cv2's IMREAD_COLOR reads them."""
+    """The channels that make the RGB image, as cv2's IMREAD_COLOR takes
+    them: R, G, B; else Y with RY / BY (a luminance/chroma file); else a
+    luminance-only `Y` three times."""
     if {"R", "G", "B"} <= set(names):
         return ("R", "G", "B")
-    if {"RY", "BY"} & set(names):
-        raise NotImplementedError(
-            f"{path}: a luminance/chroma OpenEXR file (Y, RY, BY) is not "
-            f"read by the port: its color is not rebuilt yet ({_QUEUE})")
+    if "Y" in names and {"RY", "BY"} & set(names):
+        return ("Y", "RY", "BY")
     if "Y" in names:
         return ("Y",) * 3
     raise IOError(f"{path}: no R, G, B or Y channel (has {names})")
 
 
+def _chroma_to_rgb(y, ry, by, chroma: np.ndarray) -> np.ndarray:
+    """cv2's ChromaToBGR (`grfmt_exr.cpp`) in double, each result stored
+    as float32: r = (RY + 1) Y, b = (BY + 1) Y, g = (Y - b blue_y - r red_y)
+    / green_y with the file's chromaticities."""
+    c = chroma.astype(np.float64)
+    yd = y.astype(np.float64)
+    r = (ry.astype(np.float64) + 1.0) * yd
+    b = (by.astype(np.float64) + 1.0) * yd
+    g = (yd - b * c[5] - r * c[1]) / c[3]
+    return np.stack([r, g, b], axis=-1).astype(np.float32)
+
+
 def read_exr(path: str) -> np.ndarray:
     """An OpenEXR file -> float32 RGB (H, W, 3) of its data window, alpha
-    dropped; a luminance-only (`Y`) file comes back as three equal
-    channels, as cv2's IMREAD_COLOR reads it.
+    dropped, as cv2's IMREAD_ANYDEPTH | IMREAD_COLOR reads it: a
+    luminance-only (`Y`) file comes back as three equal channels, a
+    luminance/chroma file (`Y`, `RY`, `BY`) as the RGB cv2 rebuilds from it
+    with the file's chromaticities (Rec. 709 without them), and a
+    subsampled channel by repeating each sample over its xs x ys pixels.
 
-    Read: single-part scanline files, and level 0 of single-part tiled
+    Read: single-part scanline files and level 0 of single-part tiled
     files (ONE_LEVEL, MIPMAP or RIPMAP, either rounding mode), with HALF,
-    FLOAT and UINT samples under NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44 or
-    B44A compression.  Refused by name (ROADMAP Queue 3): DWAA and DWAB
-    compression, deep and multi-part files, subsampled channels, and
-    luminance/chroma files (`RY` / `BY` without R, G, B)."""
+    FLOAT and UINT samples under NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44,
+    B44A, DWAA or DWAB compression, and subsampled channels in scanline
+    files.  Refused by name (ROADMAP Queue 3): deep and multi-part files,
+    tiled files with a subsampled channel, and unknown compression ids."""
+    attrs, window, channels, want, planes = _read(path, _wanted)
+    chans = {c.name: c for c in channels}
+    full = {n: _upsample(p.astype(np.float32), chans[n], window)
+            for n, p in planes.items()}
+    if want[1] != "RY":
+        return np.stack([full[n] for n in want], axis=-1)
+    chroma = np.frombuffer(attrs["chromaticities"][1], "<f4", 8) if (
+        "chromaticities" in attrs) else _REC709
+    zero = np.zeros_like(full["Y"])           # a file with RY or BY alone
+    return _chroma_to_rgb(full["Y"], full.get("RY", zero),
+                          full.get("BY", zero), chroma)
+
+
+def read_exr_channels(path: str) -> dict:
+    """Every channel of an OpenEXR file as decoded, before any color step:
+    name -> (ny_c, nx_c) array of its own type (float16, float32 or
+    uint32), the samples at x % xs == 0 and y % ys == 0 of the data
+    window."""
+    return _read(path, lambda _, names: names)[4]
+
+
+def _read(path: str, select) -> tuple:
+    """(attributes, data window, channels, the names `select(path,
+    names)` gives, {name: samples} of those channels)."""
     with open(path, "rb") as f:
         buf = f.read()
     magic, version = struct.unpack_from("<iI", buf) if len(buf) >= 8 else (
@@ -114,32 +170,61 @@ def read_exr(path: str) -> np.ndarray:
                 f"(single-part scanline and tiled files are; {_QUEUE})")
     attrs, pos = _header(buf, 8)
     comp = attrs["compression"][1][0]
-    cname = _COMPRESSIONS.get(comp, (f"#{comp}",))[0]
-    if cname not in _DECODED:
+    if comp not in _COMPRESSIONS:
         raise NotImplementedError(
-            f"{path}: OpenEXR {cname} compression is not decoded by the "
-            f"port ({', '.join(_DECODED)} are; {_QUEUE})")
+            f"{path}: unknown OpenEXR compression id {comp} (the port reads "
+            "the format's ten, "
+            f"{', '.join(n for n, _ in _COMPRESSIONS.values())}; {_QUEUE})")
+    cname, lines = _COMPRESSIONS[comp]
     channels = _channels(attrs["channels"][1])
-    want = _wanted(path, [c.name for c in channels])
+    want = tuple(select(path, [c.name for c in channels]))
     window = struct.unpack("<4i", attrs["dataWindow"][1])
     x0, y0, x1, y1 = window
     if version & _TILED:
+        if any((c.xs, c.ys) != (1, 1) for c in channels):
+            raise NotImplementedError(
+                f"{path}: a tiled OpenEXR file with a subsampled channel, "
+                f"which the format forbids, is not read ({_QUEUE})")
         chunks = _tile_chunks(buf, pos, attrs, window)
     else:
-        chunks = _scanline_chunks(buf, pos, _COMPRESSIONS[comp][1], window)
-    blocks = _decode_chunks(cname, [(d, nx, ny) for _, _, nx, ny, d in chunks],
-                           channels)
-    planes = {n: np.empty((y1 - y0 + 1, x1 - x0 + 1), np.float32)
-              for n in set(want)}
-    for (cx, cy, nx, ny, _), block in zip(chunks, blocks):
-        start = 0
-        for c in channels:
-            stop = start + nx * c.dtype.itemsize
-            if c.name in planes:
-                planes[c.name][cy - y0:cy - y0 + ny, cx - x0:cx - x0 + nx] = (
-                    np.ascontiguousarray(block[:, start:stop]).view(c.dtype))
-            start = stop
-    return np.stack([planes[n] for n in want], axis=-1)
+        chunks = _scanline_chunks(buf, pos, lines, window)
+    work = [_chunk(d, cx, cy, nx, ny, channels)
+            for cx, cy, nx, ny, d in chunks]
+    decoded = _decode_chunks(cname, work, channels)
+    planes = {}
+    for i, c in enumerate(channels):
+        if c.name not in want:
+            continue
+        p = np.empty((_samples(c.ys, y0, y1 - y0 + 1),
+                      _samples(c.xs, x0, x1 - x0 + 1)), c.dtype)
+        for (cx, cy, _, _, _), k, out in zip(chunks, work, decoded):
+            r, q = _samples(c.ys, y0, cy - y0), _samples(c.xs, x0, cx - x0)
+            ny, nx = k.shapes[i]
+            p[r:r + ny, q:q + nx] = np.ascontiguousarray(out[i]).view(
+                c.dtype).reshape(ny, nx)
+        planes[c.name] = p
+    return attrs, window, channels, want, planes
+
+
+def _upsample(p: np.ndarray, c: Channel, window) -> np.ndarray:
+    """A subsampled channel over its pixels, each sample repeated over the
+    xs x ys pixels from its own (cv2's UpSample; the format makes the data
+    window's origin and size multiples of the sampling)."""
+    if (c.xs, c.ys) == (1, 1):
+        return p
+    x0, y0, x1, y1 = window
+    rows = (np.arange(y0, y1 + 1) // c.ys) - -(-y0 // c.ys)
+    cols = (np.arange(x0, x1 + 1) // c.xs) - -(-x0 // c.xs)
+    return p[rows[:, None], cols[None, :]]
+
+
+def _chunk(data: bytes, x: int, y: int, nx: int, ny: int,
+           channels: list) -> Chunk:
+    """The chunk of pixels (x, y) + (nx, ny)'s sample layout."""
+    ln = np.arange(y, y + ny)
+    return Chunk(data, [(_samples(c.ys, y, ny), _samples(c.xs, x, nx))
+                        for c in channels],
+                 np.stack([ln % c.ys == 0 for c in channels], axis=1))
 
 
 def _chunk_at(buf: bytes, off: int, head: str) -> tuple:
@@ -216,33 +301,51 @@ def _tile_chunks(buf: bytes, pos: int, attrs: dict, window) -> list:
 
 
 def _decode_chunks(cname: str, chunks: list, channels: list) -> list:
-    """Compressed chunks [(data, nx, ny)] -> their pixels as (ny, row bytes)
-    uint8 blocks, each row the channels' nx little-endian samples in turn.
-    A chunk that did not shrink is stored raw, under every compression."""
-    row = [sum(nx * c.dtype.itemsize for c in channels)
-           for _, nx, _ in chunks]
-    blocks, todo = [], []
-    for (data, nx, ny), r in zip(chunks, row):
-        if cname == "NONE" or len(data) >= ny * r:
-            if len(data) < ny * r:
-                raise IOError(f"truncated chunk ({len(data)} bytes, "
-                              f"{ny * r} expected)")
-            blocks.append(np.frombuffer(data, np.uint8, ny * r).reshape(ny, r))
+    """Compressed chunks -> per chunk, per channel its samples' bytes as a
+    (ny_c, nx_c * sample bytes) uint8 array.  A chunk that did not shrink
+    is stored raw (lines of the channels' samples in turn), under every
+    compression."""
+    sizes = [[c.dtype.itemsize * n for c, (_, n) in zip(channels, k.shapes)]
+             for k in chunks]
+    out, todo = [], []
+    for k, widths in zip(chunks, sizes):
+        raw = sum(w * ny for w, (ny, _) in zip(widths, k.shapes))
+        if cname == "NONE" or len(k.data) >= raw:
+            if len(k.data) < raw:
+                raise IOError(f"truncated chunk ({len(k.data)} bytes, "
+                              f"{raw} expected)")
+            out.append(split_lines(np.frombuffer(k.data, np.uint8, raw),
+                                   k.lines, widths))
         else:
-            blocks.append(None)
-            todo.append(len(blocks) - 1)
+            out.append(None)
+            todo.append(len(out) - 1)
     if todo:
         try:
             decoded = _DECODERS[cname]([chunks[i] for i in todo], channels)
         except (IndexError, ValueError, struct.error, zlib.error) as e:
             raise IOError(f"corrupt {cname} chunk ({e})") from e
-        for i, block in zip(todo, decoded):
-            ny = chunks[i][2]
-            if block.size != ny * row[i]:
-                raise IOError(f"corrupt {cname} chunk ({block.size} bytes, "
-                              f"{ny * row[i]} expected)")
-            blocks[i] = block.reshape(ny, row[i])
-    return blocks
+        for i, planes in zip(todo, decoded):
+            for p, w, (ny, _) in zip(planes, sizes[i], chunks[i].shapes):
+                if p.size * p.itemsize != ny * w:
+                    raise IOError(f"corrupt {cname} chunk ({p.size} samples "
+                                  f"of {p.itemsize} bytes, {ny * w} bytes "
+                                  "expected)")
+            out[i] = planes
+    return out
+
+
+def split_lines(buf: np.ndarray, lines: np.ndarray, widths: list) -> list:
+    """A chunk's bytes, line after line the `widths[c]` bytes of each
+    channel with samples on that line (`lines`: (lines, channels) bool), ->
+    per channel a (its lines, widths[c]) uint8 array."""
+    if lines.all():
+        rows = buf.reshape(lines.shape[0], -1)
+        cuts = np.cumsum([0] + list(widths))
+        return [rows[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    size = (lines * np.asarray(widths, np.int64)).ravel()
+    start = (np.cumsum(size) - size).reshape(lines.shape)
+    return [buf[start[lines[:, c], c][:, None] + np.arange(w)]
+            for c, w in enumerate(widths)]
 
 
 # ---------------------------------------------------------------- helpers
@@ -371,19 +474,20 @@ def _unpredict(t: np.ndarray) -> np.ndarray:
     return out
 
 
-def _words_to_rows(planes: list, ny: int) -> np.ndarray:
-    """Per-channel 16-bit word planes (ny, nx * words a sample) -> the
-    chunk's scanlines as bytes."""
-    return np.ascontiguousarray(np.concatenate(
-        [p.reshape(ny, -1) for p in planes], axis=1), "<u2").view(np.uint8)
+def _widths(k: Chunk, channels: list, nbytes=None) -> list:
+    """Bytes of a line of each channel (`nbytes`: per channel, else its
+    sample size)."""
+    nbytes = nbytes or [c.dtype.itemsize for c in channels]
+    return [b * nx for b, (_, nx) in zip(nbytes, k.shapes)]
 
 
 # ------------------------------------------------------- RLE, ZIP, PXR24
 
-def _rle(chunks: list, channels: list) -> list:
-    """OpenEXR's run-length code: a signed count byte c, then -c literal
-    bytes (c < 0) or one byte repeated c + 1 times; one lane per chunk."""
-    datas = [np.frombuffer(d, np.uint8) for d, _, _ in chunks]
+def rle_decode(datas: list) -> list:
+    """OpenEXR's run-length code (`ImfRle.cpp`): a signed count byte c,
+    then -c literal bytes (c < 0) or one byte repeated c + 1 times; one lane
+    per stream."""
+    datas = [np.frombuffer(d, np.uint8) for d in datas]
     sizes = np.array([d.size for d in datas], np.int64)
     ends = np.cumsum(sizes)
     buf = np.concatenate(datas + [np.zeros(2, np.uint8)])
@@ -393,8 +497,8 @@ def _rle(chunks: list, channels: list) -> list:
         c = code[p]
         return np.where(c < 0, 1 - c, 2), None
 
-    walk = _Lanes(len(chunks), step)
-    every = np.arange(len(chunks))
+    walk = _Lanes(len(datas), step)
+    every = np.arange(len(datas))
     walk.walk(every, ends - sizes, ends, None)
     counts = walk.count
     at = walk.visits.T[np.arange(walk.visits.shape[0]) < counts[:, None]]
@@ -412,44 +516,48 @@ def _rle(chunks: list, channels: list) -> list:
     inc[np.cumsum(n) - n] = first - np.append(0, (first + np.where(
         literal, n - 1, 0))[:-1])
     out = buf[np.cumsum(inc)]
-    per_chunk = np.bincount(np.repeat(np.arange(len(chunks)), counts),
-                            weights=n, minlength=len(chunks)).astype(np.int64)
-    bounds = np.cumsum(per_chunk)
-    return [_unpredict(b) for b in np.split(out, bounds[:-1])]
+    per_chunk = np.bincount(np.repeat(np.arange(len(datas)), counts),
+                            weights=n, minlength=len(datas)).astype(np.int64)
+    return np.split(out, np.cumsum(per_chunk)[:-1])
+
+
+def _rle(chunks: list, channels: list) -> list:
+    return [split_lines(_unpredict(b), k.lines, _widths(k, channels))
+            for b, k in zip(rle_decode([k.data for k in chunks]), chunks)]
 
 
 def _zip(chunks: list, channels: list) -> list:
-    return [_unpredict(np.frombuffer(zlib.decompress(d), np.uint8))
-            for d, _, _ in chunks]
+    return [split_lines(_unpredict(np.frombuffer(zlib.decompress(k.data),
+                                                 np.uint8)),
+                        k.lines, _widths(k, channels)) for k in chunks]
 
 
 def _pxr24(chunks: list, channels: list) -> list:
     """zlib, then per line and channel the samples' byte planes (most
     significant first: UINT 4, HALF 2, FLOAT the top 3), each sample the
     wrapping difference from the previous one in its line."""
-    nbytes = {_UINT: 4, _HALF: 2, _FLOAT: 3}
+    nbytes = [{_UINT: 4, _HALF: 2, _FLOAT: 3}[c.dtype] for c in channels]
     out = []
-    for data, nx, ny in chunks:
-        raw = np.frombuffer(zlib.decompress(data), np.uint8)
-        line = nx * sum(nbytes[c.dtype] for c in channels)
-        if raw.size != ny * line:
+    for k in chunks:
+        raw = np.frombuffer(zlib.decompress(k.data), np.uint8)
+        widths = _widths(k, channels, nbytes)
+        want = sum(w * ny for w, (ny, _) in zip(widths, k.shapes))
+        if raw.size != want:
             raise IOError(f"corrupt PXR24 chunk ({raw.size} bytes, "
-                          f"{ny * line} expected)")
-        rows = raw.reshape(ny, line)
-        planes, start = [], 0
-        for c in channels:
-            nb = nbytes[c.dtype]
-            b = rows[:, start:start + nb * nx].reshape(ny, nb, nx)
-            start += nb * nx
+                          f"{want} expected)")
+        planes = []
+        for c, nb, rows, (ny, nx) in zip(channels, nbytes, split_lines(
+                raw, k.lines, widths), k.shapes):
+            b = rows.reshape(ny, nb, nx)
             diff = np.zeros((ny, nx), np.uint32)
-            for k in range(nb):
-                diff |= b[:, k].astype(np.uint32) << (8 * (nb - 1 - k))
+            for j in range(nb):
+                diff |= b[:, j].astype(np.uint32) << (8 * (nb - 1 - j))
             if c.dtype == _FLOAT:
                 diff <<= 8
             v = np.cumsum(diff, axis=1, dtype=np.uint32)
-            planes.append((v & 0xFFFF).astype(np.uint16) if c.dtype == _HALF
-                          else v.astype("<u4").view("<u2"))
-        out.append(_words_to_rows(planes, ny))
+            planes.append((v & 0xFFFF).astype("<u2") if c.dtype == _HALF
+                          else v.astype("<u4"))
+        out.append(planes)
     return out
 
 
@@ -512,18 +620,22 @@ def _b44(chunks: list, channels: list) -> list:
     grid (edge blocks padded, cropped here); FLOAT and UINT channels stored
     plain; a pLinear channel decoded through the log table."""
     out = []
-    for data, nx, ny in chunks:
+    for k in chunks:
+        data = k.data
         buf = np.concatenate([np.frombuffer(data, np.uint8),
                               np.zeros(16, np.uint8)])
-        nbx, nby = -(-nx // 4), -(-ny // 4)
         planes, pos = [], 0
-        for c in channels:
+        for c, (ny, nx) in zip(channels, k.shapes):
+            nbx, nby = -(-nx // 4), -(-ny // 4)
             if c.dtype != _HALF:
                 n = nx * ny * c.dtype.itemsize
                 if pos + n > len(data):
                     raise IOError("truncated B44 chunk")
-                planes.append(buf[pos:pos + n].view("<u2"))
+                planes.append(buf[pos:pos + n])
                 pos += n
+                continue
+            if not nbx * nby:
+                planes.append(np.zeros((ny, nx), "<u2"))
                 continue
             at = _b44_blocks(buf, pos, nbx * nby)
             pos = int(at[-1]) + (3 if buf[at[-1] + 2] >= _B44_FLAT else 14)
@@ -533,11 +645,11 @@ def _b44(chunks: list, channels: list) -> list:
             if c.plinear:
                 s = _b44_log_table()[s]
             planes.append(s.reshape(nby, nbx, 4, 4).transpose(0, 2, 1, 3)
-                          .reshape(4 * nby, 4 * nbx)[:ny, :nx])
+                          .reshape(4 * nby, 4 * nbx)[:ny, :nx].astype("<u2"))
         if pos != len(data):
             raise IOError(f"corrupt B44 chunk ({len(data) - pos} bytes "
                           "left over)")
-        out.append(_words_to_rows(planes, ny))
+        out.append(planes)
     return out
 
 
@@ -904,7 +1016,7 @@ def _piz(chunks: list, channels: list) -> list:
     out, batch, total = [], [], 0
     for i, chunk in enumerate(chunks):
         batch.append(chunk)
-        total += chunk[1] * chunk[2] * sum(words)
+        total += sum(w * a * b for w, (a, b) in zip(words, chunk.shapes))
         if total >= _PIZ_BATCH_WORDS or i == len(chunks) - 1:
             out += _piz_batch(batch, words)
             batch, total = [], 0
@@ -928,7 +1040,8 @@ def _huf_parse(huf: np.ndarray) -> _Huffman:
 
 def _piz_batch(chunks: list, words: list) -> list:
     hufs, luts = [], []
-    for data, nx, ny in chunks:
+    for k in chunks:
+        data = k.data
         d = np.frombuffer(data, np.uint8)
         lo, hi = struct.unpack_from("<HH", data)
         bitmap = np.zeros(8192, np.uint8)
@@ -944,25 +1057,32 @@ def _piz_batch(chunks: list, words: list) -> list:
     decoded = _huf_decode(hufs)
     # the wavelet, one stack of planes per shape and transform
     planes, groups = [], {}
-    for (data, nx, ny), dec, (lut, max_value) in zip(chunks, decoded, luts):
-        if dec.size != ny * nx * sum(words):
+    for k, dec, (lut, max_value) in zip(chunks, decoded, luts):
+        n = [w * a * b for w, (a, b) in zip(words, k.shapes)]
+        if dec.size != sum(n):
             raise IOError(f"corrupt PIZ chunk ({dec.size} words, "
-                          f"{ny * nx * sum(words)} expected)")
-        per = np.split(dec, np.cumsum([ny * nx * w for w in words])[:-1])
-        per = [c.reshape(ny, nx, w) for c, w in zip(per, words)]
+                          f"{sum(n)} expected)")
+        per = [c.reshape(a, b, w) for c, w, (a, b) in zip(
+            np.split(dec, np.cumsum(n)[:-1]), words, k.shapes)]
         planes.append(per)
         for ci, c in enumerate(per):
             for j in range(c.shape[2]):
-                groups.setdefault((ny, nx, max_value < 1 << 14), []).append(
-                    (len(planes) - 1, ci, j))
+                groups.setdefault(c.shape[:2] + (max_value < 1 << 14,),
+                                  []).append((len(planes) - 1, ci, j))
     for (ny, nx, w14), members in groups.items():
         stack = np.stack([planes[k][ci][:, :, j] for k, ci, j in members])
         _wav2_decode(stack, w14)
         for (k, ci, j), plane in zip(members, stack):
             planes[k][ci][:, :, j] = plane
-    return [_words_to_rows([lut[c] for c in per], per[0].shape[0])
+    return [[lut[c].astype("<u2") for c in per]
             for per, (lut, _) in zip(planes, luts)]
 
 
+def _dwa(chunks: list, channels: list) -> list:
+    from .exr_dwa import decode
+    return decode(chunks, channels)
+
+
 _DECODERS = {"RLE": _rle, "ZIPS": _zip, "ZIP": _zip, "PIZ": _piz,
-             "PXR24": _pxr24, "B44": _b44, "B44A": _b44}
+             "PXR24": _pxr24, "B44": _b44, "B44A": _b44, "DWAA": _dwa,
+             "DWAB": _dwa}
