@@ -20,12 +20,17 @@ version on the card.
 One JSON line per phase:
 
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: nvcc of the CUDA kernels for sm_90a in a thread, Triton's first
-    compiles meanwhile;
+ 2. build: nvcc of the CUDA kernels for sm_90a (K2: one library per
+    element type, both started at the top of `main`, before torch is
+    imported), Triton's first compiles meanwhile; per K2 instantiation
+    ptxas' registers and spills
+    and its SASS inventory (`cuobjdump -sass`: HGMMA, HMMA, UBLKCP,
+    UTMALDG), which must show HGMMA and bulk copies and no HMMA;
  3. K1 (Triton skip concat) vs plain at the four Up shapes, B=60, f32/bf16;
- 4. K2 (CUDA double conv on the tensor cores) vs plain (cuDNN) at the
-    inc/down0..2 shapes, B=60, f32/bf16, timed; then untimed at ragged and
-    padded shapes;
+ 4. K2 (CUDA double conv on Hopper's wgmma) vs plain (cuDNN) at the
+    inc/down0..2 shapes, B=60 and B=8, f32/bf16, timed, each row with the
+    cluster size, tile and registers of its configuration (f32 rows also
+    with the split-TF32 bound); then untimed at ragged and padded shapes;
  5. the generator forward (8x1x256x256) with the kernels vs all-plain;
  6. end to end: synthetic 1080x1920 .hdr files -> PNGs in f32 and bf16,
     kernel launch counts of that run, warm frames/s, and a small image
@@ -33,8 +38,8 @@ One JSON line per phase:
  7. k1_extra / k2_extra (untimed): both kernels vs plain at the shapes the
     other paths give them: B=120 tiles (two scenes in one video frame
     step), the four B=1 planes of a whole 1080p frame, and the training
-    batches B=16 (image generator) and B=8 (a frame step of the video
-    generator);
+    batches B=16 (image generator) and, for K1, B=8 (a frame step of the
+    video generator; K2's is in phase 4);
  8. video: scenes of 4 frames of 1080x1920 .hdr files -> PNGs with
     `scene_batch` 1 and 2, launch counts, device ms per scene and frames/s,
     the cost of the carry in a frame step, a profile; video_reference: a
@@ -159,6 +164,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak flop/s by type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+TF32_FLOPS = 495e12            # dense TF32 tensor cores (K2's float32 path)
 
 K1_SHAPES = [(256, 24), (128, 57), (64, 122), (32, 252)]      # (C, H=W)
 K2_SHAPES = [("inc", 1, 32, 32, 256), ("down0", 32, 64, 64, 126),
@@ -291,24 +297,87 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def phase_build():
+# SASS opcodes counted per K2 instantiation: Hopper's warpgroup MMA, the
+# Ampere-style MMA (none may be left), bulk / tensor copies
+SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG")
+K2_BUILD: dict = {}            # Cfg<...> of an instantiation -> its record
+
+
+# K2's two libraries (`double_conv.library_defines` of float32, bfloat16),
+# compiled from the top of `main` on, before torch is imported, so that
+# nvcc overlaps the start-up; `phase_build` waits for them
+K2_DEFINES = (("-DUNCLTMO_K2_ELEM=0",), ("-DUNCLTMO_K2_ELEM=1",))
+PREBUILD: list = []
+
+
+def start_prebuild() -> None:
+    from concurrent.futures import ThreadPoolExecutor
     from uncltmo_tpu_torch.ops.kernels import build
+    pool = ThreadPoolExecutor(len(K2_DEFINES))
+    PREBUILD.extend(pool.submit(build.compile_source, "double_conv3x3.cu", d)
+                    for d in K2_DEFINES)
+    pool.shutdown(wait=False)
+
+
+def cfg_key(entry: str) -> str:
+    """The `Cfg<...>` template arguments and element type of a mangled K2
+    instantiation, e.g. '4,24,2,128,256,4,128,1,3,0/bf16'."""
+    import re
+    m = re.search(r"CfgI((?:Li-?\d+E)+)Lb(\d)E", entry)
+    if not m:
+        return entry[-40:]
+    args = ",".join(re.findall(r"Li(-?\d+)E", m.group(1)))
+    dtype = "bf16" if "bfloat16" in entry[m.end():] else "f32"
+    return f"{args},{m.group(2)}/{dtype}"
+
+
+def phase_build():
+    """nvcc of K2, then per instantiation ptxas' registers and spills and
+    the SASS inventory (`cuobjdump -sass`): every K2 kernel must issue
+    HGMMA, none HMMA, and its weights must move by bulk copies."""
+    import torch
+    from uncltmo_tpu_torch.ops.kernels import build
+    from uncltmo_tpu_torch.ops.kernels.double_conv import library_defines
     t0 = time.perf_counter()
-    build.load_library("double_conv3x3.cu")
-    info = build.build_info["double_conv3x3.cu"]
-    # ptxas -v, per kernel instantiation: registers, shared memory, spills
-    ptxas, entry = [], ""
-    for ln in info["log"].splitlines():
+    # one library per element type, both nvcc at once (started in `main`)
+    defines = [library_defines(d) for d in (torch.float32, torch.bfloat16)]
+    assert tuple(defines) == K2_DEFINES
+    for f in PREBUILD:
+        f.result()
+    for d in defines:
+        build.load_library("double_conv3x3.cu", d)
+    paths = [build.library_path("double_conv3x3.cu", d) for d in defines]
+    infos = [build.build_info[os.path.basename(p)] for p in paths]
+    kernels: dict = {}
+    entry = ""
+    for ln in "\n".join(i["log"] for i in infos).splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
-        elif "registers" in ln or "spill" in ln:
-            # the mangled name; for the templated kernel, from its Cfg<...>
-            short = entry[entry.find("CfgI"):] if "CfgI" in entry else entry
-            ptxas.append({"entry": short[:64],
-                          "info": ln.replace("ptxas info    :", "").strip()})
+            kernels[cfg_key(entry)] = {"ptxas": []}
+        elif entry and ("registers" in ln or "spill" in ln):
+            kernels[cfg_key(entry)]["ptxas"].append(
+                ln.replace("ptxas info    :", "").strip())
+        elif "Performance Loss" in ln:
+            kernels.setdefault(cfg_key(ln), {"ptxas": []})[
+                "performance_loss"] = ln.strip()[:200]
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = "".join(subprocess.run([cuobjdump, "-sass", p],
+                                  capture_output=True, text=True,
+                                  timeout=120).stdout for p in paths)
+    for block in sass.split("Function : ")[1:]:
+        key = cfg_key(block.split("\n", 1)[0])
+        counts = {op: block.count(f" {op}.") for op in SASS_OPS}
+        kernels.setdefault(key, {"ptxas": []})["sass"] = counts
+    bad = {k: v for k, v in kernels.items()
+           if not v.get("sass", {}).get("HGMMA") or v["sass"].get("HMMA")
+           or not (v["sass"].get("UBLKCP") or v["sass"].get("UTMALDG"))}
+    K2_BUILD.update(kernels)
     emit("build", kernel="fused_double_conv3x3", route="cuda",
-         nvcc_seconds=info["seconds"],
-         load_seconds=time.perf_counter() - t0, ptxas=ptxas)
+         nvcc_seconds=[i["seconds"] for i in infos],
+         load_seconds=time.perf_counter() - t0, instantiations=kernels)
+    if bad or not kernels:
+        raise AssertionError(f"K2 SASS: kernels without HGMMA, with HMMA "
+                             f"or without bulk copies: {bad}")
 
 
 def phase_first_launches(torch):
@@ -410,15 +479,34 @@ def phase_k1(torch, dtypes):
     return rows
 
 
+def k2_registers(plan, dname) -> str:
+    """ptxas' register line of the instantiation that serves `plan`."""
+    key = (f"{plan.th},{plan.tw},{plan.nwg},{plan.ch},"
+           f"{plan.n2 * plan.cl},{plan.cl},")
+    tag = "/bf16" if dname == "bfloat16" else "/f32"
+    for k, v in K2_BUILD.items():
+        if (k.startswith(key) and k.endswith(tag)
+                and k.split(",")[-1][0] == str(int(plan.cinp == 1))):
+            return next((ln for ln in v["ptxas"] if "registers" in ln), "")
+    return ""
+
+
 def phase_k2(torch, dtypes):
+    """K2 against its plain version at the four cells, B = 60 (a 1080p
+    frame; the rows returned) and B = 8 (a rank's training batch), timed
+    beside cuDNN and the bound; float32 rows also carry the bound of the
+    kernel's own split-TF32 products (3 x flops at 495 TFLOP/s)."""
     import torch.nn.functional as F
     from uncltmo_tpu_torch.ops.kernels.double_conv import (
-        double_conv3x3_plain, fused_double_conv3x3, pack_double_conv_weights)
+        double_conv3x3_plain, fused_double_conv3x3, kernel_plan,
+        pack_double_conv_weights)
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = {d: [] for d in dtypes}
     for dname, dtype in dtypes.items():
-        for name, cin, c1, c2, s in K2_SHAPES:
-            x, w1, b1, w2, b2 = k2_inputs(torch, g, dtype, BATCH, cin, c1,
+        for (name, cin, c1, c2, s), batch in (
+                [(c, BATCH) for c in K2_SHAPES]
+                + [(c, TRAIN_BATCH[0]) for c in K2_SHAPES]):
+            x, w1, b1, w2, b2 = k2_inputs(torch, g, dtype, batch, cin, c1,
                                           c2, s, s)
             out, err, scale = k2_check(torch, dname, name,
                                        (x, w1, b1, w2, b2))
@@ -433,17 +521,25 @@ def phase_k2(torch, dtypes):
             def cudnn():
                 F.relu_(F.conv2d(F.relu_(F.conv2d(x, w1, b1)), w2, b2))
             library = time_ms(cudnn)
-            flops = 2 * 9 * BATCH * (cin * c1 * (s - 2) ** 2
+            flops = 2 * 9 * batch * (cin * c1 * (s - 2) ** 2
                                      + c1 * c2 * (s - 4) ** 2)
             nbytes = (x.numel() + out.numel() + w1.numel() + w2.numel()
                       + c1 + c2) * x.element_size()
             bms, by = bound_ms(nbytes, flops, dname)
-            row = dict(dtype=dname, cell=name, shape=list(x.shape),
+            plan = kernel_plan(cin, c1, c2, dtype, x.device)
+            row = dict(dtype=dname, cell=name, batch=batch,
+                       shape=list(x.shape), cluster=plan.cl,
+                       tile=[plan.th, plan.tw], chunk=plan.ch,
+                       registers=k2_registers(plan, dname),
                        max_abs_err=err, plain_max_abs=scale, ms=ms,
                        ms_packing_in_call=ms_packing, plain_ms=plain,
                        library_ms=library, flops=flops,
                        tflops=flops / ms / 1e9, bound_ms=bms, bound_by=by)
-            rows[dname].append(row)
+            if dname == "float32":
+                row["split_tf32_bound_ms"] = max(
+                    nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+            if batch == BATCH:
+                rows[dname].append(row)
             emit("k2", **row)
             del x, out
         for shape in K2_RAGGED:
@@ -478,8 +574,9 @@ def phase_kernels_extra(torch, dtypes):
     batches = (VIDEO_BATCH,) + TRAIN_KERNEL_BATCHES
     k1_shapes = ([(b, c, s, s) for b in batches for c, s in K1_SHAPES]
                  + [(1, c, h, w) for c, h, w in k1_planes])
+    # K2 at B = 8 is held against plain (and timed) in the k2 phase
     k2_shapes = ([(n, b, cin, c1, c2, s, s) for b in batches
-                  for n, cin, c1, c2, s in K2_SHAPES]
+                  if b != TRAIN_BATCH[0] for n, cin, c1, c2, s in K2_SHAPES]
                  + [(n, 1, cin, c1, c2, h, w)
                     for n, cin, c1, c2, h, w in k2_planes])
     for dname, dtype in dtypes.items():
@@ -1299,7 +1396,7 @@ def phase_train_reference(torch):
             (card, logs), (cpu, ref_logs) = sides["cuda"], sides["cpu"]
             strict = eps != published
             worst = {"D": 0.0, "G": 0.0, "G_encoder": 0.0}
-            encoder_l2, worst_name = 0.0, None
+            encoder_l2, worst_name, worst_g = 0.0, None, None
             for gname, a, c, opt_a, opt_c in (
                     ("D", card.disc, cpu.disc, card.opt_D, cpu.opt_D),
                     ("G", card.gen, cpu.gen, card.opt_G, cpu.opt_G)):
@@ -1317,6 +1414,8 @@ def phase_train_reference(torch):
                                                       / mc.norm()).item())
                         if rel > worst[key]:
                             worst_name = name
+                    elif gname == "G" and rel > worst[key]:
+                        worst_g = name
                     worst[key] = max(worst[key], rel)
             log_err = {k: abs(logs[k] - ref_logs[k])
                        / max(abs(ref_logs[k]), 1e-30) for k in ref_logs
@@ -1328,6 +1427,7 @@ def phase_train_reference(torch):
                  exp_avg_max_rel_err=worst,
                  encoder_exp_avg_rel_l2_err=encoder_l2,
                  encoder_worst_parameter=worst_name,
+                 g_worst_parameter=worst_g,
                  log_max_rel_err=max(v for k, v in log_err.items()
                                      if not k.startswith("gradG/")),
                  grad_log_max_rel_err=max(
@@ -3473,6 +3573,16 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=2,
                     help="1080p files of the tiled image phase")
     args = ap.parse_args(argv)
+    if os.path.isdir(os.path.join(ROOT, "uncltmo_tpu_torch")):
+        start_prebuild()
+    try:
+        return run_main(args)
+    finally:
+        for f in PREBUILD:                  # no nvcc outlives the script
+            f.exception()
+
+
+def run_main(args) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

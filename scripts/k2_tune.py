@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Time variants of the K2 CUDA source against each other on one card.
 
-    python3 scripts/k2_tune.py [--dtype bfloat16] [--iters 10] \\
-        base= 'wide=@UNCLTMO_K2_CFG256=8,8,3,2,256,64,2,1' \\
+    python3 scripts/k2_tune.py [--dtype bfloat16] [--iters 10] [--batch 60] \\
+        base= 'ch128=@UNCLTMO_K2_CFG256=4,24,2,128,256,4,128,1,3' \\
         'other=path/to/copy.cu::-DSOME_FLAG'
 
 Each argument is `name=[source::]nvcc flags`; the source defaults to
 `uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu`.  A flag written
 `@MACRO=a,b,c` becomes a `#define MACRO a, b, c` in a header that is
-force-included (nvcc splits `-D` values at commas); the float32 shapes are
-the `UNCLTMO_K2F_*` macros.  All variants are
-built at once (one nvcc each) into `chiprun_out/k2_tune/`, then each is run
-at the four main-path cells (B = 60, one 1080p frame), held against the plain
-version (the error is reported, not enforced: a variant may be an ablation)
-and timed with CUDA events, in the order given and once more in reverse.
-One JSON line per (variant, cell), then one summary line per variant.
+force-included (nvcc splits `-D` values at commas); a shape is TH, TW,
+NWG, CH, C2P, CL, CINC, TG, NST (see the source's `Cfg`), the float32 ones
+are the `UNCLTMO_K2F_*` macros.  All variants are built at once (one nvcc
+each) into `chiprun_out/k2_tune/`, with ptxas' registers and spills and
+the SASS count of `HGMMA` per kernel; then each is run at the four
+main-path cells (B = 60: one 1080p frame; `--batch 8`: a rank's training
+batch), with the weights packed under the variant's own plan
+(`uncltmo_double_conv3x3_plan`), held against the plain version (the error
+is reported, not enforced: a variant may be an ablation) and timed with
+CUDA events, in the order given and once more in reverse.  One JSON line
+per (variant, cell), then one summary line per variant.
 """
 from __future__ import annotations
 
@@ -30,7 +34,6 @@ sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "chiprun_out", "k2_tune")
 CELLS = [("inc", 1, 32, 32, 256), ("down0", 32, 64, 64, 126),
          ("down1", 64, 128, 128, 61), ("down2", 128, 256, 256, 28)]
-BATCH = 60
 
 
 def main() -> int:
@@ -40,11 +43,12 @@ def main() -> int:
                     choices=["bfloat16", "float32"])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--cells", default="inc,down0,down1,down2")
+    ap.add_argument("--batch", type=int, default=60)
     args = ap.parse_args()
     import torch
     from uncltmo_tpu_torch.ops.kernels import build
     from uncltmo_tpu_torch.ops.kernels.double_conv import (
-        double_conv3x3_plain, pack_double_conv_weights)
+        Plan, double_conv3x3_plain, pack_double_conv_weights)
     if not torch.cuda.is_available():
         print("k2_tune: no CUDA device", file=sys.stderr)
         return 2
@@ -65,8 +69,10 @@ def main() -> int:
                     macro, _, value = flag[1:].partition("=")
                     f.write(f"#define {macro} {value}\n")
         plain = [flag for flag in flags.split() if not flag.startswith("@")]
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain, "-include",
-               header, "-o", lib, src]
+        # the selected element type only (`UNCLTMO_K2_ELEM`)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain,
+               f"-DUNCLTMO_K2_ELEM={int(args.dtype == 'bfloat16')}",
+               "-include", header, "-o", lib, src]
         procs.append((name, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -81,12 +87,17 @@ def main() -> int:
                 if "Used" in ln and "registers" in ln]
         spills = [ln.strip() for ln in log.splitlines()
                   if "spill" in ln and "0 bytes spill stores" not in ln]
+        sass = subprocess.run(["cuobjdump", "-sass", lib],
+                              capture_output=True, text=True).stdout
+        hgmma = [blk.count(" HGMMA.") for blk in sass.split("Function : ")[1:]]
         print(json.dumps({"variant": name, "build": "ok", "registers": regs,
-                          "spills": spills}), flush=True)
+                          "spills": spills, "hgmma": hgmma}), flush=True)
         handle = ctypes.CDLL(lib)
         handle.uncltmo_double_conv3x3.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         handle.uncltmo_double_conv3x3.restype = ctypes.c_int
+        handle.uncltmo_double_conv3x3_plan.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
         libs.append((name, handle))
 
     dtype = getattr(torch, args.dtype)
@@ -99,26 +110,33 @@ def main() -> int:
         def rnd(*shape, std=1.0):
             return (torch.randn(shape, generator=g, device="cuda")
                     * std).to(dtype)
-        x = torch.rand((BATCH, cin, s, s), generator=g,
+        batch = args.batch
+        x = torch.rand((batch, cin, s, s), generator=g,
                        device="cuda").to(dtype)
         w = (rnd(c1, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5),
              rnd(c1, std=0.1),
              rnd(c2, c1, 3, 3, std=(2.0 / (9 * c1)) ** 0.5),
              rnd(c2, std=0.1))
-        pk = pack_double_conv_weights(*w)
         ref = double_conv3x3_plain(x, *w).float()
         scale = ref.abs().max().item()
-        y = torch.empty((BATCH, c2, s - 4, s - 4), dtype=dtype, device="cuda")
+        y = torch.empty((batch, c2, s - 4, s - 4), dtype=dtype, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        flops = 2 * 9 * BATCH * (cin * c1 * (s - 2) ** 2
+        flops = 2 * 9 * batch * (cin * c1 * (s - 2) ** 2
                                  + c1 * c2 * (s - 4) ** 2)
+        code = 0 if dtype == torch.float32 else 1
+        packs = {}
+        for name, handle in libs:
+            plan = (ctypes.c_int * 12)()
+            handle.uncltmo_double_conv3x3_plan(cin, c1, c2, code, plan)
+            packs[name] = pack_double_conv_weights(*w, plan=Plan(*plan))
         for name, handle in libs + libs[::-1]:
+            pk = packs[name]
+
             def run():
                 err = handle.uncltmo_double_conv3x3(
                     x.data_ptr(), pk.w1.data_ptr(), pk.b1.data_ptr(),
-                    pk.w2.data_ptr(), pk.b2.data_ptr(), y.data_ptr(), BATCH,
-                    cin, s, s, c1, c2, 0 if dtype == torch.float32 else 1,
-                    stream)
+                    pk.w2.data_ptr(), pk.b2.data_ptr(), y.data_ptr(), batch,
+                    cin, s, s, c1, c2, code, stream)
                 if err:
                     raise RuntimeError(f"{name} {cell}: launch error {err}")
             y.fill_(float("nan"))

@@ -30,7 +30,8 @@ from uncltmo_tpu_torch.ops.kernels.concat_skip import (
     concat_skip_backward_plain, concat_skip_plain, fused_concat_skip,
     fused_concat_skip_backward)
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
-    double_conv3x3_backward, double_conv3x3_plain, fused_double_conv3x3)
+    default_plan, double_conv3x3_backward, double_conv3x3_plain,
+    fused_double_conv3x3, kernel_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +85,50 @@ def test_k2_kernel_matches_plain(cuda_device, dtype, h, w, cin, c1, c2):
     else:
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+# the U-Net's four cells (Cin, C1, C2, input side) at a 1080p frame's 60
+# tiles and at a rank's training batch of 8
+K2_CELLS = [(1, 32, 32, 256), (32, 64, 64, 126), (64, 128, 128, 61),
+            (128, 256, 256, 28)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [8, 60])
+@pytest.mark.parametrize("cin,c1,c2,s", K2_CELLS,
+                         ids=["inc", "down0", "down1", "down2"])
+def test_k2_cells_at_frame_and_rank_batches(cuda_device, dtype, b, cin, c1,
+                                            c2, s):
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * std).to(dtype)
+
+    x = torch.rand((b, cin, s, s), generator=g, device="cuda").to(dtype)
+    args = (x, rnd(c1, cin, 3, 3, std=(2 / (9 * cin)) ** 0.5),
+            rnd(c1, std=0.1), rnd(c2, c1, 3, 3, std=(2 / (9 * c1)) ** 0.5),
+            rnd(c2, std=0.1))
+    out = fused_double_conv3x3(*args)
+    ref = double_conv3x3_plain(*args).float()
+    err = (out.float() - ref).abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,c1,c2", [(1, 32, 32), (32, 64, 64),
+                                       (64, 128, 128), (128, 256, 256),
+                                       (3, 5, 7), (144, 40, 72),
+                                       (6, 96, 300)])
+def test_k2_plan_matches_the_packings_mirror(cuda_device, dtype, cin, c1,
+                                             c2):
+    """The built library's plan is the one the CPU packing assumes, and
+    `down2` runs as a cluster."""
+    plan = kernel_plan(cin, c1, c2, dtype, cuda_device)
+    assert plan == default_plan(cin, c1, c2, dtype)
+    if (cin, c1, c2) == (128, 256, 256):
+        assert plan.cl >= 2
 
 
 # a batch of 120 tiles (two 1080p scenes in one video frame step) and one

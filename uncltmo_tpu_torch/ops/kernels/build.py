@@ -2,9 +2,12 @@
 them with ctypes.
 
 Each source has a plain C interface (no PyTorch headers), so a build takes
-seconds.  Libraries go to `uncltmo_tpu_torch/.build/` (git-ignored), named
-by a hash of the source and flags: a changed source rebuilds, an unchanged
-one loads at once.  A failed build raises; nothing falls back.
+seconds; a source may be built more than once with different `-D` defines
+(K2: one library per element type), each its own library, and builds
+started from several threads run side by side.  Libraries go to
+`uncltmo_tpu_torch/.build/` (git-ignored), named by a hash of the source,
+flags and defines: a changed source rebuilds, an unchanged one loads at
+once.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict = {}
-# per source: {"seconds": build time (0 when loaded from .build), "log": ...}
+# per library file name: {"seconds": build time (0 when loaded from
+# .build), "log": nvcc's and ptxas' output}
 build_info: dict = {}
 
 
@@ -41,20 +45,23 @@ def nvcc_path() -> str:
                        "uncltmo_tpu_torch are built from source at first use")
 
 
-def library_path(source: str) -> str:
+def library_path(source: str, defines: tuple = ()) -> str:
     with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS
+                                                    + defines).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def compile_source(source: str) -> str:
-    """nvcc `csrc/<source>` into the build directory (if not there yet) and
-    return the library's path.  Safe to call from several processes: the
-    library is written under a temporary name and renamed into place."""
-    out = library_path(source)
+def compile_source(source: str, defines: tuple = ()) -> str:
+    """nvcc `csrc/<source>` with `defines` into the build directory (if not
+    there yet) and return the library's path.  Safe to call from several
+    threads and processes: the library is written under a temporary name
+    and renamed into place."""
+    out = library_path(source, defines)
+    name = os.path.basename(out)
     if os.path.exists(out):
-        build_info.setdefault(source, {"seconds": 0.0, "log": "cached"})
+        build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -62,7 +69,7 @@ def compile_source(source: str) -> str:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+            [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp,
              os.path.join(CSRC, source)],
             capture_output=True, text=True)
         if proc.returncode != 0:
@@ -73,14 +80,20 @@ def compile_source(source: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    build_info[source] = {"seconds": time.perf_counter() - t0,
-                          "log": proc.stdout + proc.stderr}
+    build_info[name] = {"seconds": time.perf_counter() - t0,
+                        "log": proc.stdout + proc.stderr}
     return out
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """The ctypes handle of `csrc/<source>`, built on first use."""
+def load_library(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The ctypes handle of `csrc/<source>` built with `defines`, built on
+    first use (outside the lock, so that two libraries build at once)."""
+    key = (source, tuple(defines))
     with _lock:
-        if source not in _loaded:
-            _loaded[source] = ctypes.CDLL(compile_source(source))
-        return _loaded[source]
+        if key in _loaded:
+            return _loaded[key]
+    path = compile_source(source, tuple(defines))
+    with _lock:
+        if key not in _loaded:
+            _loaded[key] = ctypes.CDLL(path)
+        return _loaded[key]

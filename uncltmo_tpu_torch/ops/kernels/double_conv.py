@@ -20,14 +20,17 @@ of a kernel: `double_conv3x3_backward` recomputes the intermediate with
 The TPU kernel's `W*Cin % 128 == 0` rule is a Mosaic DMA constraint and
 does not apply here: any H, W >= 5 and any channel counts are accepted.
 
-The kernels read the weights in a packed layout (`pack_double_conv_weights`).
-Packing costs two small device copies, so a caller that runs the same
-weights many times packs once and passes the result as `packed`
-(`models/blocks.py:DoubleConv` keeps it, keyed on `weights_key`).
+The kernel reads the weights packed (`pack_double_conv_weights`): in the
+byte image of its shared-memory stages, in the order it consumes them,
+under the plan of the configuration that serves the call
+(`kernel_plan`).  Packing costs a few small device copies, so a caller
+that runs the same weights many times packs once and passes the result as
+`packed` (`models/blocks.py:DoubleConv` keeps it, keyed on `weights_key`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,7 +41,12 @@ from uncltmo_tpu_torch.ops.precision import autocast_dtype
 
 _SOURCE = "double_conv3x3.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MMA_K = 16          # depth of one bfloat16 tensor-core product (float32: 8)
+
+
+def library_defines(dtype: torch.dtype) -> tuple:
+    """The source is built once per element type (two nvcc side by side
+    instead of one for both)."""
+    return (f"-DUNCLTMO_K2_ELEM={_DTYPE_CODE[dtype]}",)
 
 
 class PackedDoubleConv(NamedTuple):
@@ -49,43 +57,200 @@ class PackedDoubleConv(NamedTuple):
     b2: torch.Tensor
 
 
+class Plan(NamedTuple):
+    """What the packing and the kernel agree on for one call
+    (`uncltmo_double_conv3x3_plan` in `csrc/double_conv3x3.cu`)."""
+    cinp: int      # input channels, padded (1: Cin == 1, conv1 on CUDA cores)
+    cinc: int      # input channels staged at a time
+    c1p: int       # intermediate channels, padded to whole chunks
+    ch: int        # intermediate channels a chunk
+    cl: int        # CTAs a cluster (each: ch / cl of conv1, n2 of conv2)
+    n2: int        # output channels a CTA
+    c2p: int       # output channels, padded
+    th: int        # output tile height
+    tw: int        # output tile width
+    tg: int        # taps a weight stage
+    nst: int       # weight stages in the ring
+    nwg: int       # consumer warpgroups
+
+
+# The defaults of `csrc/double_conv3x3.cu` (`UNCLTMO_K2_CFG*`, float32
+# `UNCLTMO_K2F_CFG*`): (TH, TW, NWG, CH, C2P, CL, CINC, TG, NST) by
+# element type and output-channel width ("inc": Cin == 1, C2 <= 32).  On a
+# CUDA tensor the plan comes from the built library itself; this table
+# serves the packing of CPU tensors.
+_CFGS = {
+    torch.bfloat16: {"inc": (12, 28, 2, 32, 32, 1, 64, 9, 2),
+                     32: (12, 28, 2, 32, 32, 1, 64, 3, 3),
+                     64: (7, 31, 2, 32, 64, 1, 64, 9, 2),
+                     128: (2, 57, 2, 32, 128, 1, 64, 3, 3),
+                     256: (2, 24, 2, 128, 256, 2, 128, 1, 3)},
+    torch.float32: {"inc": (8, 28, 2, 16, 32, 1, 32, 3, 3),
+                    32: (4, 28, 2, 16, 32, 1, 32, 1, 4),
+                    64: (5, 31, 2, 16, 64, 1, 32, 1, 3),
+                    128: (5, 19, 2, 16, 128, 1, 64, 1, 3),
+                    256: (2, 24, 2, 32, 256, 2, 64, 1, 2)},
+}
+
+
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def padded_channels(cin: int, c1: int, c2: int):
-    """(Cin, C1, C2) as the kernel pads them: Cin to the bfloat16 MMA depth,
-    C1 to a multiple of 32 (the intermediate is walked in chunks of 32 or
-    64 channels), C2 to the output-channel width of a block (32, 64, 128 or
-    multiples of 256).  `csrc/double_conv3x3.cu` applies the same rule and refuses
-    anything else."""
-    c2p = next((n for n in (32, 64, 128) if c2 <= n), _round_up(c2, 256))
-    return _round_up(cin, MMA_K), _round_up(c1, 32), c2p
+def padded_c2(c2: int) -> int:
+    """C2 padded to the output-channel width of a configuration: 32, 64,
+    128 or a multiple of 256 (one pass of the grid's y per 256)."""
+    return next((n for n in (32, 64, 128) if c2 <= n), _round_up(c2, 256))
 
 
-def _pack_taps(w: torch.Tensor, kp: int, np_: int) -> torch.Tensor:
-    """OIHW (N, K, 3, 3) -> [tap = 3*ky + kx][K padded to kp][N padded to
-    np_], zero in the padding: row `k` of tap `t` is the B operand row of
-    the implicit GEMM."""
-    n, k = w.shape[:2]
-    out = w.new_zeros((9, kp, np_))
-    out[:, :k, :n] = w.permute(2, 3, 1, 0).reshape(9, k, n)
+def padded_cin(cin: int, es: int) -> int:
+    """Cin padded to a whole swizzle row a tap: 16 or 32 channels, else a
+    multiple of 128 bytes."""
+    return 16 if cin <= 16 else 32 if cin <= 32 else _round_up(cin, 128 // es)
+
+
+def default_plan(cin: int, c1: int, c2: int, dtype: torch.dtype) -> Plan:
+    """The plan of the source's default configurations (see `_CFGS`)."""
+    c2p = padded_c2(c2)
+    cin1 = c2p == 32 and cin == 1
+    th, tw, nwg, ch, c2blk, cl, cinc_max, tg, nst = _CFGS[dtype][
+        "inc" if cin1 else min(c2p, 256)]
+    es = torch.finfo(dtype).bits // 8
+    cinp = 1 if cin1 else padded_cin(cin, es)
+    return Plan(cinp, 1 if cin1 else min(cinp, cinc_max), _round_up(c1, ch),
+                ch, cl, c2blk // cl, c2p, th, tw, tg, nst, nwg)
+
+
+def kernel_plan(cin: int, c1: int, c2: int, dtype: torch.dtype,
+                device: torch.device) -> Plan:
+    """The plan of the configuration that serves the call: the built
+    library's own on a CUDA device, `default_plan` elsewhere."""
+    if torch.device(device).type != "cuda":
+        return default_plan(cin, c1, c2, dtype)
+    out = (ctypes.c_int * 12)()
+    lib = _library(dtype)
+    err = lib.uncltmo_double_conv3x3_plan(cin, c1, c2, _DTYPE_CODE[dtype],
+                                          out)
+    if err != 0:
+        raise RuntimeError("fused_double_conv3x3 plan failed: "
+                           + lib.uncltmo_cuda_error_string(err).decode())
+    return Plan(*out)
+
+
+def b_image_index(k: int, n: int, es: int) -> torch.Tensor:
+    """Element offsets (k, n) -> position in the shared-memory image of a
+    K x N weight operand as `wgmma` reads it through the kernel's
+    descriptors: K-major, each row n holding K elements in S = min(K * es,
+    128) bytes (the swizzle width: 32, 64 or 128), K beyond 128 bytes in
+    column blocks of N rows, and the 16-byte chunks of a row XOR-ed with
+    bits of the row number as Hopper's 128 / 64 / 32-byte swizzles do
+    (address bits [4, 4 + log2(S / 16)) ^= bits [7, ...))."""
+    s = min(k * es, 128)
+    assert s in (32, 64, 128) and k * es % s == 0 and n % 8 == 0, (k, n, es)
+    rk, per16 = s // es, 16 // es
+    kk = torch.arange(k)[:, None]
+    nn = torch.arange(n)[None, :]
+    swz = (nn % 8) >> {128: 0, 64: 1, 32: 2}[s]
+    chunk = ((kk % rk) // per16) ^ swz
+    byte = (kk // rk) * n * s + nn * s + chunk * 16 + (kk % per16) * es
+    return byte // es
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as the card's `cvt.rna.tf32.f32`."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor):
+    """w = hi + lo + (error below 2^-21 |w|), hi and lo both TF32."""
+    hi = tf32_round(w)
+    return hi, tf32_round(w - hi)
+
+
+def _images(b: torch.Tensor, es: int) -> torch.Tensor:
+    """b (planes, ..., N, K), a weight operand per row n of outputs ->
+    (..., planes, K * N) in the stage image's order."""
+    planes, n, k = b.shape[0], b.shape[-2], b.shape[-1]
+    idx = b_image_index(k, n, es).T.reshape(-1)
+    out = b.new_empty(b.shape[1:-2] + (planes, k * n))
+    for p in range(planes):
+        out[..., p, idx] = b[p].reshape(b.shape[1:-2] + (k * n,))
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _pack_order(plan: Plan, es: int, device: torch.device):
+    """Where each element of the packed w1 and w2 comes from: indices into
+    the flattened [plane][tap][C1_p][Cin_p] and [plane][tap][C2_p][C1_p]
+    arrays (Cin == 1: [tap][C1_p]), in the order in which the kernel's
+    producer copies them into its weight stages:
+
+    * w1: [C1 chunk][cluster rank][Cin chunk][tap][plane][image of Cin
+      chunk x rank's ch / cl channels];
+    * w2: [C2 pass of cl * n2][C1 chunk][rank][tap][plane][image of ch x
+      n2].
+    Computed once per plan, element size and device."""
+    planes = 2 if es == 4 else 1
+    cl, ch, n1 = plan.cl, plan.ch, plan.ch // plan.cl
+    n_j = plan.c1p // ch
+    if plan.cinp == 1:
+        o1 = torch.arange(9 * plan.c1p)
+    else:
+        src = torch.arange(planes * 9 * plan.c1p * plan.cinp).reshape(
+            planes, 9, n_j, cl, n1, plan.cinp)
+        # (plane, j, rank, tap, n, cin) per Cin chunk
+        src = src.permute(0, 2, 3, 1, 4, 5)
+        o1 = torch.cat([
+            _images(src[..., i:i + plan.cinc], es).reshape(n_j, cl, -1)
+            for i in range(0, plan.cinp, plan.cinc)], dim=2).reshape(-1)
+    ny = plan.c2p // (cl * plan.n2)
+    src = torch.arange(planes * 9 * plan.c2p * plan.c1p).reshape(
+        planes, 9, ny, cl, plan.n2, n_j, ch)
+    # (plane, pass, j, rank, tap, n, k)
+    o2 = _images(src.permute(0, 2, 5, 3, 1, 4, 6), es).reshape(-1)
+    return o1.to(device), o2.to(device)
+
+
 def pack_double_conv_weights(w1: torch.Tensor, b1: torch.Tensor,
-                             w2: torch.Tensor,
-                             b2: torch.Tensor) -> PackedDoubleConv:
-    """Weights OIHW (C1, Cin, 3, 3), (C2, C1, 3, 3) and biases in the layout
-    the kernel reads: `[tap][Cin_p][C1_p]` and `[tap][C1_p][C2_p]`, channel
-    counts zero-padded as `padded_channels` says, in the weights' dtype.
-    Biases are kept as they are (contiguous)."""
+                             w2: torch.Tensor, b2: torch.Tensor,
+                             plan: Plan | None = None) -> PackedDoubleConv:
+    """Weights OIHW (C1, Cin, 3, 3), (C2, C1, 3, 3) and biases in the order
+    and byte image in which the kernel's producer copies them into its
+    weight stages (`_pack_order`), channel counts zero-padded as the plan
+    says, in the weights' dtype (`kernel_plan` of their device when `plan`
+    is None); planes: float32 TF32 hi then lo (`tf32_split`), bfloat16 the
+    weights; Cin == 1: w1 as [tap][C1_p], read on the CUDA cores.  A stage
+    (`tg` taps of one chunk) is one contiguous block.  Biases are kept as
+    they are (contiguous)."""
+    w1, w2 = w1.detach(), w2.detach()
     c1, cin = w1.shape[:2]
-    cinp, c1p, c2p = padded_channels(cin, c1, w2.shape[0])
-    return PackedDoubleConv(_pack_taps(w1.detach(), cinp, c1p),
-                            b1.detach().contiguous(),
-                            _pack_taps(w2.detach(), c1p, c2p),
-                            b2.detach().contiguous())
+    c2 = w2.shape[0]
+    if plan is None:
+        plan = kernel_plan(cin, c1, c2, w1.dtype, w1.device)
+    es = w1.element_size()
+    o1, o2 = _pack_order(plan, es, w1.device)
+    taps1 = w1.new_zeros((9, plan.c1p, plan.cinp))
+    taps1[:, :c1, :cin] = w1.permute(2, 3, 0, 1).reshape(9, c1, cin)
+    taps2 = w2.new_zeros((9, plan.c2p, plan.c1p))
+    taps2[:, :c2, :c1] = w2.permute(2, 3, 0, 1).reshape(9, c2, c1)
+
+    def planes(t):
+        return torch.stack(tf32_split(t)) if es == 4 else t
+
+    return PackedDoubleConv(
+        (taps1 if plan.cinp == 1 else planes(taps1)).reshape(-1)[o1],
+        b1.detach().contiguous(), planes(taps2).reshape(-1)[o2],
+        b2.detach().contiguous())
+
+
+def packed_sizes(plan: Plan, es: int):
+    """Elements of the packed w1 and w2 under `plan` (float32: two
+    planes)."""
+    planes = 2 if es == 4 else 1
+    return 9 * plan.cinp * planes * plan.c1p if plan.cinp > 1 else \
+        9 * plan.c1p, 9 * planes * plan.c2p * plan.c1p
 
 
 def weights_key(*params: torch.Tensor, dtype: torch.dtype | None = None):
@@ -123,8 +288,8 @@ def double_conv3x3_backward(x, w1, b1, w2, b2, y, gy, need_dx: bool = True):
     return dx, dw1, db1, dw2, db2
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(_SOURCE)
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    lib = load_library(_SOURCE, library_defines(dtype))
     fn = lib.uncltmo_double_conv3x3
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -132,6 +297,9 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.uncltmo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uncltmo_cuda_error_string.restype = ctypes.c_char_p
+        lib.uncltmo_double_conv3x3_plan.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        lib.uncltmo_double_conv3x3_plan.restype = ctypes.c_int
     return lib
 
 
@@ -179,12 +347,17 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _launch(x, w1, b1, w2, b2, packed):
-    lib = _library()
+    lib = _library(x.dtype)
     x = x.contiguous()
     b, cin, h, w = x.shape
     c1, c2 = w1.shape[0], w2.shape[0]
     if packed is None:
         packed = pack_double_conv_weights(w1, b1, w2, b2)
+    plan = kernel_plan(cin, c1, c2, x.dtype, x.device)
+    if (packed.w1.numel(), packed.w2.numel()) != packed_sizes(
+            plan, x.element_size()):
+        raise ValueError("fused_double_conv3x3: `packed` was not packed "
+                         f"under the kernel's plan {plan}")
     y = torch.empty((b, c2, h - 4, w - 4), dtype=x.dtype, device=x.device)
     # the launch and its shared-memory attribute go to the current card:
     # make it x's, whichever card the caller had current
