@@ -1,0 +1,7 @@
+"""device_idle_pct.train: share of the traced stretch of training steps in
+which no operation ran on the device (the union of their intervals), %."""
+from portbench.metrics_common import idle_pct
+
+
+def read(run):
+    return idle_pct(run)

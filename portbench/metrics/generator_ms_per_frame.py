@@ -1,0 +1,7 @@
+"""generator_ms_per_frame: device time a frame of the operations launched
+inside the benchmark's `generator` span in the traced stretch."""
+from portbench.metrics_common import device_ms_per_item
+
+
+def read(run):
+    return device_ms_per_item(run, ("generator",))

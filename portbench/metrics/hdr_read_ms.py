@@ -1,0 +1,7 @@
+"""hdr_read_ms: host time of one `read_hdr_image` call as the runner
+makes it (the benchmark's span in the traced stretch), mean over files."""
+from portbench.metrics_common import mean_host_ms
+
+
+def read(run):
+    return mean_host_ms(run, "hdr_read")
