@@ -262,11 +262,6 @@ def test_async_host_worker_contract():
 
 # ----------------------------------------------------------- profiling
 def test_timed_and_checked():
-    def work(n):
-        return torch.ones(n).sum()
-
-    s = profiling.timed(work, 1000, warmup=1, iters=3)
-    assert 0.0 < s < 1.0
     ok = profiling.checked(lambda: {"a": torch.ones(2), "b": [1, 2]})
     assert ok()["b"] == [1, 2]
     bad = profiling.checked(lambda: (torch.ones(2),

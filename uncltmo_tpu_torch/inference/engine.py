@@ -39,6 +39,10 @@ the tiles are independent, and `batchMax`, the one batch-coupled step, is
 taken over the whole gathered chunk, as JAX's max over a sharded batch is.
 A video tile's carry stays on the device that runs it.
 
+`_run_frame` and `_run_group` open the spans `uncltmo.engine.cut`,
+`uncltmo.engine.forward` and `uncltmo.engine.blend` once a chunk or group
+(`utils/profiling.py`).
+
 `run_images`' `post_name` contract is not ported: it keys a compile cache
 that eager PyTorch does not have.
 """
@@ -54,6 +58,7 @@ from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.inference.tiling import axis_plan
 from uncltmo_tpu_torch.models.unet import video_apply
 from uncltmo_tpu_torch.parallel.mesh import get_mesh
+from uncltmo_tpu_torch.utils import profiling
 
 # Plans above this many tiles run in equalised chunks of ~120 tiles
 # (`engine.py:43`, `:174-201`).
@@ -232,20 +237,24 @@ class TileEngine:
                              device=self.device)
         for c0 in range(0, n_pad, chunk):
             real = range(c0, min(c0 + chunk, n))
-            tiles = self._cut(image, oy[real.start:real.stop],
-                              ox[real.start:real.stop])
-            n_fill = chunk - len(real)
-            if n_fill:
-                if streamed:     # origin-(0, 0) tiles, zero weight
-                    fill = self._cut(image, [0] * n_fill, [0] * n_fill)
-                else:            # zero tiles
-                    fill = torch.zeros((n_fill,) + tiles.shape[1:],
-                                       dtype=tiles.dtype, device=tiles.device)
-                tiles = torch.cat([tiles, fill])
-            outs = self._forward(tiles)[:len(real)]
+            with profiling.trace("uncltmo.engine.cut"):
+                tiles = self._cut(image, oy[real.start:real.stop],
+                                  ox[real.start:real.stop])
+                n_fill = chunk - len(real)
+                if n_fill:
+                    if streamed:     # origin-(0, 0) tiles, zero weight
+                        fill = self._cut(image, [0] * n_fill, [0] * n_fill)
+                    else:            # zero tiles
+                        fill = torch.zeros((n_fill,) + tiles.shape[1:],
+                                           dtype=tiles.dtype,
+                                           device=tiles.device)
+                    tiles = torch.cat([tiles, fill])
+            with profiling.trace("uncltmo.engine.forward"):
+                outs = self._forward(tiles)[:len(real)]
             sl = slice(real.start, real.stop)
-            self._blend(canvas, outs, wy[sl], wx[sl], oy[sl], ox[sl],
-                        streamed)
+            with profiling.trace("uncltmo.engine.blend"):
+                self._blend(canvas, outs, wy[sl], wx[sl], oy[sl], ox[sl],
+                            streamed)
         return canvas
 
     def _run_group(self, group: torch.Tensor) -> list:
@@ -256,14 +265,18 @@ class TileEngine:
         oy, ox, wy, wx, n = self._plan(h, w)
         if n > STREAM_TILE_THRESHOLD:
             return [self._run_frame(member) for member in group]
-        tiles = torch.cat([self._cut(member, oy, ox) for member in group])
-        outs = self._forward(tiles)
+        with profiling.trace("uncltmo.engine.cut"):
+            tiles = torch.cat([self._cut(member, oy, ox)
+                               for member in group])
+        with profiling.trace("uncltmo.engine.forward"):
+            outs = self._forward(tiles)
         canvases = []
-        for o in outs.reshape(group.shape[0], n, *outs.shape[1:]):
-            canvas = torch.zeros(group.shape[1:], dtype=torch.float32,
-                                 device=self.device)
-            self._blend(canvas, o, wy, wx, oy, ox, False)
-            canvases.append(canvas)
+        with profiling.trace("uncltmo.engine.blend"):
+            for o in outs.reshape(group.shape[0], n, *outs.shape[1:]):
+                canvas = torch.zeros(group.shape[1:], dtype=torch.float32,
+                                     device=self.device)
+                self._blend(canvas, o, wy, wx, oy, ox, False)
+                canvases.append(canvas)
         return canvases
 
     def run_image(self, image_hw1: torch.Tensor) -> torch.Tensor:

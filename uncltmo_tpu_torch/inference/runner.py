@@ -10,6 +10,10 @@ device.  `run_on_path` overlaps the three stages across images: a loader
 thread reads image i+1 and a saver thread fetches and encodes image i-1
 while the device runs image i.  `run_on_video_path` with `scene_batch > 1`
 does the same across groups of scenes.
+
+`preprocess_device` and `postprocess_device` open the spans
+`uncltmo.serve.preprocess` and `uncltmo.serve.postprocess`
+(`utils/profiling.py`).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from uncltmo_tpu_torch.inference.engine import TileEngine
 from uncltmo_tpu_torch.models.unet import make_generator, min_input_size
 from uncltmo_tpu_torch.ops import color, preprocess
 from uncltmo_tpu_torch.ops.resize import bicubic_resize
+from uncltmo_tpu_torch.utils import profiling
 from uncltmo_tpu_torch.utils.convert import load_state, read_generator_state
 from uncltmo_tpu_torch.utils.io import (list_hdr_names, load_lambda_dict,
                                         read_hdr_image, save_uint8_png)
@@ -41,8 +46,9 @@ _NO_ADD_FRAME_VIDEO = (
 def preprocess_device(rgb_hw3: torch.Tensor, f_factor,
                       data_trc: str = "min_log"):
     """RGB HDR -> (min-shifted rgb, lambda-log luma), both unpadded."""
-    rgb = rgb_hw3 - torch.clamp(rgb_hw3.min(), max=0.0)
-    gray = preprocess.hdr_to_network_input(rgb, f_factor, data_trc)
+    with profiling.trace("uncltmo.serve.preprocess"):
+        rgb = rgb_hw3 - torch.clamp(rgb_hw3.min(), max=0.0)
+        gray = preprocess.hdr_to_network_input(rgb, f_factor, data_trc)
     return rgb, gray
 
 
@@ -50,15 +56,16 @@ def postprocess_device(rgb_padded: torch.Tensor, fake: torch.Tensor,
                        diff_y: int, diff_x: int) -> torch.Tensor:
     """Percentile clamp/stretch + ratio-image color + frame crop + display
     stretch (`model_save_util.py:389-405`).  Returns (H, W, 3) in [0, 1]."""
-    fake_stretch = color.percentile_clamp_stretch(fake, 0.5, 99.5)
-    im_color = color.back_to_color(rgb_padded, fake_stretch)
-    im_max = im_color.max()
-    im_color = preprocess.crop_frame(im_color, diff_y, diff_x)
-    im_color = torch.minimum(torch.clamp(im_color, min=0.0), im_max)
-    # the reference saver clamps to [0, 1] BEFORE the outlier percentile
-    # stretch (`hdr_image_util.py:237-241`)
-    im_color = torch.clamp(im_color, 0.0, 1.0)
-    return color.to_01_outlier(im_color)
+    with profiling.trace("uncltmo.serve.postprocess"):
+        fake_stretch = color.percentile_clamp_stretch(fake, 0.5, 99.5)
+        im_color = color.back_to_color(rgb_padded, fake_stretch)
+        im_max = im_color.max()
+        im_color = preprocess.crop_frame(im_color, diff_y, diff_x)
+        im_color = torch.minimum(torch.clamp(im_color, min=0.0), im_max)
+        # the reference saver clamps to [0, 1] BEFORE the outlier
+        # percentile stretch (`hdr_image_util.py:237-241`)
+        im_color = torch.clamp(im_color, 0.0, 1.0)
+        return color.to_01_outlier(im_color)
 
 
 def postprocess_whole_device(rgb_padded: torch.Tensor, fake: torch.Tensor,

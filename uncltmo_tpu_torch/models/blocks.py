@@ -42,6 +42,7 @@ from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights, weights_key)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype, no_autocast
 from uncltmo_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
+from uncltmo_tpu_torch.utils import profiling
 
 
 def activation_fn(name: str):
@@ -253,13 +254,15 @@ class DoubleConv(nn.Module):
     def packed_weights(self, dtype: Optional[torch.dtype] = None):
         """The kernel's weight layout, in `dtype` (the weights' own when
         None), packed once and again only after a reload, a cast, a move or
-        an in-place update of a parameter, or for another `dtype`."""
+        an in-place update of a parameter, or for another `dtype`; a packing
+        opens the span `uncltmo.k2.pack`."""
         key = weights_key(*self._weights(), dtype=dtype)
         if self._packed is None or self._packed[0] != key:
-            ws = self._weights()
-            if dtype is not None:
-                ws = [w.to(dtype) for w in ws]
-            self._packed = (key, pack_double_conv_weights(*ws))
+            with profiling.trace("uncltmo.k2.pack"):
+                ws = self._weights()
+                if dtype is not None:
+                    ws = [w.to(dtype) for w in ws]
+                self._packed = (key, pack_double_conv_weights(*ws))
         return self._packed[1]
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

@@ -40,6 +40,10 @@ batch and moves its running statistics (`uncltmo_tpu/models/unet.py:
 `.train()` / `.eval()` says), and under autograd `_splice` builds new
 tensors, so the gradient flows through the carry.  `video_apply` moves the
 statistics frame by frame in order, as the JAX scan carries them.
+
+`frame` opens the spans `uncltmo.gen.encoder` (`inc`, `down_path`),
+`uncltmo.gen.gcn` and `uncltmo.gen.decoder` (`up_path`, `outc`), once a
+forward and, in video, once a frame step (`utils/profiling.py`).
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from uncltmo_tpu_torch.ops.precision import no_autocast
 from uncltmo_tpu_torch.ops.preprocess import crop_center_batch
 from uncltmo_tpu_torch.ops.windows import adaptive_avg_pool_1, contrast_map
 from uncltmo_tpu_torch.parallel.mesh import global_max
+from uncltmo_tpu_torch.utils import profiling
 
 Carry = Optional[List[torch.Tensor]]
 
@@ -145,38 +150,42 @@ class UNetTMO(nn.Module):
         # the manual-d operator's weight plane: the input's weight channel
         # (`uncltmo_tpu/models/unet.py:133-135`)
         d_weight_mul = x[0, 1, 0, 0] if self.manual_d else None
-        next_x = self.inc(x, train)
-        skips = [next_x]
-        new_carry = [_rec_slice(next_x, r)]
-        for i, layer in enumerate(self.down_path):
-            pool, cell = layer.mpconv
-            fea = pool(next_x)
-            if carry is not None and carry[i].shape[1]:
-                # the max pool works channel by channel, so splicing its
-                # output with the pooled slice equals pooling the spliced
-                # input, and the skip stays as it was without a copy
-                # (below 32 channels the slice is empty)
-                fea = _splice(fea, pool(carry[i]))
-            next_x = cell(fea, train)
-            skips.append(next_x)
-            if i < self.depth - 1:
-                new_carry.append(_rec_slice(next_x, r))
-        up_x = self.gcn(skips[self.depth], deterministic, generator,
-                        drop_masks)
+        with profiling.trace("uncltmo.gen.encoder"):
+            next_x = self.inc(x, train)
+            skips = [next_x]
+            new_carry = [_rec_slice(next_x, r)]
+            for i, layer in enumerate(self.down_path):
+                pool, cell = layer.mpconv
+                fea = pool(next_x)
+                if carry is not None and carry[i].shape[1]:
+                    # the max pool works channel by channel, so splicing
+                    # its output with the pooled slice equals pooling the
+                    # spliced input, and the skip stays as it was without a
+                    # copy (below 32 channels the slice is empty)
+                    fea = _splice(fea, pool(carry[i]))
+                next_x = cell(fea, train)
+                skips.append(next_x)
+                if i < self.depth - 1:
+                    new_carry.append(_rec_slice(next_x, r))
+        with profiling.trace("uncltmo.gen.gcn"):
+            up_x = self.gcn(skips[self.depth], deterministic, generator,
+                            drop_masks)
         new_carry.append(_rec_slice(up_x, r))
-        for i, layer in enumerate(self.up_path):
-            if carry is not None:
-                up_x = _splice(up_x, carry[self.depth + i])
-            up_x = layer(up_x, skips[self.depth - (i + 1)], d_weight_mul,
-                         train)
-            if i < self.depth - 1:
-                new_carry.append(_rec_slice(up_x, r))
-        # the output head in the weights' dtype, float32 under autocast:
-        # the structural loss standardises the fake by local stds of
-        # ~1e-3, below a bfloat16 step of the output (2^-9 at 0.5)
-        with no_autocast():
-            x_out = blocks.last_layer_fn(self.last_layer)(
-                self.outc(up_x.to(self.outc.conv.weight.dtype)))
+        with profiling.trace("uncltmo.gen.decoder"):
+            for i, layer in enumerate(self.up_path):
+                if carry is not None:
+                    up_x = _splice(up_x, carry[self.depth + i])
+                up_x = layer(up_x, skips[self.depth - (i + 1)],
+                             d_weight_mul, train)
+                if i < self.depth - 1:
+                    new_carry.append(_rec_slice(up_x, r))
+            # the output head in the weights' dtype, float32 under
+            # autocast: the structural loss standardises the fake by local
+            # stds of ~1e-3, below a bfloat16 step of the output (2^-9 at
+            # 0.5)
+            with no_autocast():
+                x_out = blocks.last_layer_fn(self.last_layer)(
+                    self.outc(up_x.to(self.outc.conv.weight.dtype)))
         if self.stretch_g == "batchMax":
             # over the global batch in a training forward under a process
             # group, as the JAX step's max over a sharded batch

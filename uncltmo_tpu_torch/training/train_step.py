@@ -34,6 +34,13 @@ batch see the global batch through differentiable collectives, the D and G
 gradient lists are averaged over the ranks before each Adam update (by
 hand: `torch.autograd.grad` bypasses DDP's hooks), so every rank applies
 the same update, and the logs come out global and equal on every rank.
+
+The step opens the spans `uncltmo.train.step`, `.d_update` (`.d_forward`,
+`.d_backward`, `.d_adam`), `.g_update` (`.g_forward`, `.g_loss`,
+`.g_backward`, `.g_adam`) and `.logs` (`utils/profiling.py`).  Both
+backwards run on the step's own thread, not on autograd's worker for the
+card, so that a trace puts their kernels inside the step's spans; the
+step's thread waited for the worker anyway.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from uncltmo_tpu_torch.models.unet import UNetTMO, video_apply
 from uncltmo_tpu_torch.ops.precision import float32_island
 from uncltmo_tpu_torch.parallel.mesh import all_reduce_mean_, reduce_logs
 from uncltmo_tpu_torch.training.state import TrainState, apply_updates
+from uncltmo_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +182,126 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
         return gen(_flatten_frames(hdr), deterministic=False,
                    generator=generator, drop_masks=drop_masks)
 
+    def backward(loss: torch.Tensor, params) -> Tuple[torch.Tensor, ...]:
+        """The gradients of `loss`, launched from this thread: autograd's
+        per-device worker would launch the kernels of a CUDA backward
+        outside the caller's spans, and the caller only waits for it."""
+        with torch.autograd.set_multithreading_enabled(False):
+            return torch.autograd.grad(loss, params)
+
+    def step(state, batch, generator, g_lr, d_lr, stage, pretrain,
+             drop_masks):
+        hdr = to_device(batch["hdr"])
+        ldr_pos = _flatten_frames(to_device(batch["ldr_pos"]))
+        ldr_neg = _flatten_frames(to_device(batch["ldr_neg"]))
+        hdr_luma = _flatten_frames(hdr)[:, :1]
+        logs = {}
+
+        # ---- D update (`GanTrainer.py:202-261`)
+        if cfg.train_with_D:
+            with profiling.trace("uncltmo.train.d_update"):
+                with profiling.trace("uncltmo.train.d_forward"), autocast():
+                    if pretrain:
+                        fake_for_d = hdr_luma
+                    else:
+                        # also moves batch norm's running statistics
+                        with torch.no_grad():
+                            fake_for_d, _ = g_forward(hdr, generator,
+                                                      drop_masks)
+                    d_weight = (cfg.adv_weight if stage == 0
+                                else cfg.adv_weight * 1e-6)
+                    d_real_pre, _ = disc(ldr_pos)
+                    d_fake_pre, _ = disc(fake_for_d)
+                    err_d = d_weight * adv.contrastive_d_loss(d_real_pre,
+                                                              d_fake_pre)
+                with profiling.trace("uncltmo.train.d_backward"):
+                    grads = backward(err_d, d_params)
+                    all_reduce_mean_(grads)
+                    for p, g in zip(d_params, grads):
+                        p.grad = g
+                with profiling.trace("uncltmo.train.d_adam"):
+                    apply_updates(state.opt_D, d_lr)
+
+        state.step += 1
+        if not pretrain:
+            # ---- G update against the UPDATED D (`GanTrainer.py:263-291`)
+            with profiling.trace("uncltmo.train.g_update"):
+                fake, err_g, err_struct, grads = g_update(
+                    state, hdr, hdr_luma, ldr_pos, ldr_neg, generator,
+                    g_lr, stage, drop_masks)
+
+        with profiling.trace("uncltmo.train.logs"):
+            if cfg.train_with_D:
+                logs["errD"] = err_d.detach()
+                # accuracy counters (reference `Tester.update_test_loss`:
+                # logit > 0.5 = "real"), from the pre-update D forwards
+                logs["accDreal"] = (d_real_pre > 0.5).float().mean()
+                logs["accDfake"] = (d_fake_pre <= 0.5).float().mean()
+                logs["accG"] = (d_fake_pre > 0.5).float().mean()
+            if pretrain:
+                return state, reduce_logs(logs)
+            logs["errG_d"] = err_g.detach()
+            logs["errG_struct"] = err_struct.detach()
+            # G-progress statistics (the reference prints fake min/max/mean
+            # at each train_G iteration, `printer.py:146-157`)
+            fake = fake.detach()
+            logs["fake/min"] = fake.min()
+            logs["fake/max"] = fake.max()
+            logs["fake/mean"] = fake.mean()
+            # mean |grad| per top-level layer, the grad-flow diagnostic
+            # (`plot_util.py:130-146`)
+            sums, sizes = {}, {}
+            for top, g in zip(g_tops, grads):
+                sums[top] = sums.get(top, 0.0) + g.abs().sum()
+                sizes[top] = sizes.get(top, 0) + g.numel()
+            for top in sums:
+                logs[f"gradG/{top}"] = sums[top] / sizes[top]
+            return state, reduce_logs(logs)
+
+    def g_update(state, hdr, hdr_luma, ldr_pos, ldr_neg, generator, g_lr,
+                 stage, drop_masks):
+        """The G phase: (fake, G's adversarial / contrastive loss,
+        structural loss, G's gradients)."""
+        with autocast():
+            with profiling.trace("uncltmo.train.g_forward"):
+                fake, fea_fake = g_forward(hdr, generator, drop_masks)
+                if cfg.train_with_D:
+                    d_fake_bp, d_fea_fake = disc(fake)
+                    with torch.no_grad():     # constants of the G loss
+                        d_real_pos_bp, d_fea_real_pos = disc(ldr_pos)
+                        _, d_fea_real_neg = disc(ldr_neg)
+                        _, d_fea_input = disc(hdr_luma)
+            with profiling.trace("uncltmo.train.g_loss"):
+                err_g = fake.new_zeros((), dtype=torch.float32)
+                if cfg.train_with_D:
+                    err_g = generator_loss_terms(
+                        stage, cfg, fake, fea_fake, d_fake_bp, d_real_pos_bp,
+                        d_fea_fake, d_fea_real_pos, d_fea_real_neg,
+                        d_fea_input, ldr_pos)
+                err_struct = fake.new_zeros((), dtype=torch.float32)
+                if cfg.struct_loss_factor:
+                    err_struct = cfg.struct_loss_factor * struct_loss_pyramid(
+                        fake, hdr_luma, cfg.pyramid_weights,
+                        cfg.ssim_window_size)
+                # gradients for G's parameters alone: D's `.grad`s keep the
+                # D loss's, and nothing of the G loss reaches D's optimizer
+                err = err_g + err_struct
+        with profiling.trace("uncltmo.train.g_backward"):
+            if err.requires_grad:
+                grads = backward(err, g_params)
+            else:
+                # no term to differentiate (train_with_D off and no
+                # structural loss): the JAX step differentiates the
+                # constant and still applies Adam to the zero gradients,
+                # so warm moments move G
+                grads = [torch.zeros_like(p) for p in g_params]
+            all_reduce_mean_(grads)
+            for p, g in zip(g_params, grads):
+                p.grad = g
+        with profiling.trace("uncltmo.train.g_adam"):
+            apply_updates(state.opt_G, g_lr)
+        return fake, err_g, err_struct, grads
+
     def train_step(state: TrainState, batch: Dict, generator: torch.Generator,
                    g_lr: float, d_lr: float, stage: int = 0,
                    pretrain: bool = False, drop_masks=None):
@@ -185,92 +313,9 @@ def make_train_step(gen: UNetTMO, disc: SimpleDiscriminator, cfg: LossConfig,
         if state.gen is not gen or state.disc is not disc:
             raise ValueError("train_step: the state holds other modules "
                              "than the step was built for")
-        hdr = to_device(batch["hdr"])
-        ldr_pos = _flatten_frames(to_device(batch["ldr_pos"]))
-        ldr_neg = _flatten_frames(to_device(batch["ldr_neg"]))
-        hdr_luma = _flatten_frames(hdr)[:, :1]
-        logs = {}
-
-        # ---- D update (`GanTrainer.py:202-261`)
-        if cfg.train_with_D:
-            with autocast():
-                if pretrain:
-                    fake_for_d = hdr_luma
-                else:
-                    # also moves batch norm's running statistics
-                    with torch.no_grad():
-                        fake_for_d, _ = g_forward(hdr, generator, drop_masks)
-                d_weight = (cfg.adv_weight if stage == 0
-                            else cfg.adv_weight * 1e-6)
-                d_real_pre, _ = disc(ldr_pos)
-                d_fake_pre, _ = disc(fake_for_d)
-                err_d = d_weight * adv.contrastive_d_loss(d_real_pre,
-                                                          d_fake_pre)
-            grads = torch.autograd.grad(err_d, d_params)
-            all_reduce_mean_(grads)
-            for p, g in zip(d_params, grads):
-                p.grad = g
-            apply_updates(state.opt_D, d_lr)
-            logs["errD"] = err_d.detach()
-            # accuracy counters (reference `Tester.update_test_loss`:
-            # logit > 0.5 = "real"), from the pre-update D forwards
-            logs["accDreal"] = (d_real_pre > 0.5).float().mean()
-            logs["accDfake"] = (d_fake_pre <= 0.5).float().mean()
-            logs["accG"] = (d_fake_pre > 0.5).float().mean()
-
-        state.step += 1
-        if pretrain:
-            return state, reduce_logs(logs)
-
-        # ---- G update against the UPDATED D (`GanTrainer.py:263-291`)
-        with autocast():
-            fake, fea_fake = g_forward(hdr, generator, drop_masks)
-            err_g = fake.new_zeros((), dtype=torch.float32)
-            if cfg.train_with_D:
-                d_fake_bp, d_fea_fake = disc(fake)
-                with torch.no_grad():     # constants of the G loss
-                    d_real_pos_bp, d_fea_real_pos = disc(ldr_pos)
-                    _, d_fea_real_neg = disc(ldr_neg)
-                    _, d_fea_input = disc(hdr_luma)
-                err_g = generator_loss_terms(
-                    stage, cfg, fake, fea_fake, d_fake_bp, d_real_pos_bp,
-                    d_fea_fake, d_fea_real_pos, d_fea_real_neg, d_fea_input,
-                    ldr_pos)
-            err_struct = fake.new_zeros((), dtype=torch.float32)
-            if cfg.struct_loss_factor:
-                err_struct = cfg.struct_loss_factor * struct_loss_pyramid(
-                    fake, hdr_luma, cfg.pyramid_weights, cfg.ssim_window_size)
-        # gradients for G's parameters alone: D's `.grad`s keep the D
-        # loss's, and nothing of the G loss reaches D's optimizer
-        err = err_g + err_struct
-        if err.requires_grad:
-            grads = torch.autograd.grad(err, g_params)
-        else:
-            # no term to differentiate (train_with_D off and no structural
-            # loss): the JAX step differentiates the constant and still
-            # applies Adam to the zero gradients, so warm moments move G
-            grads = [torch.zeros_like(p) for p in g_params]
-        all_reduce_mean_(grads)
-        for p, g in zip(g_params, grads):
-            p.grad = g
-        apply_updates(state.opt_G, g_lr)
-        logs["errG_d"] = err_g.detach()
-        logs["errG_struct"] = err_struct.detach()
-        # G-progress statistics (the reference prints fake min/max/mean at
-        # each train_G iteration, `printer.py:146-157`)
-        fake = fake.detach()
-        logs["fake/min"] = fake.min()
-        logs["fake/max"] = fake.max()
-        logs["fake/mean"] = fake.mean()
-        # mean |grad| per top-level layer, the grad-flow diagnostic
-        # (`plot_util.py:130-146`)
-        sums, sizes = {}, {}
-        for top, g in zip(g_tops, grads):
-            sums[top] = sums.get(top, 0.0) + g.abs().sum()
-            sizes[top] = sizes.get(top, 0) + g.numel()
-        for top in sums:
-            logs[f"gradG/{top}"] = sums[top] / sizes[top]
-        return state, reduce_logs(logs)
+        with profiling.trace("uncltmo.train.step"):
+            return step(state, batch, generator, g_lr, d_lr, stage,
+                        pretrain, drop_masks)
 
     return train_step
 

@@ -1,14 +1,14 @@
-"""Tracing, timing and numerics debugging.
+"""Tracing and numerics debugging.
 
 Port of `uncltmo_tpu/utils/profiling.py`.  The reference has no profiler
 (only `time.time()` spans, `test_imageTMO.py:43,55`) and runs its steps
 under `torch.autograd.detect_anomaly()` (`GanTrainer.py:179`).  Here:
 
-  * `trace(name)` -- a named span of `torch.profiler` (`record_function`);
+  * `trace(name)` -- the program's one kind of span: a `record_function`
+    range while a profiler records, on the clock of the device trace, and
+    a shared no-op context otherwise (one read of the profiler's flag);
     `start_trace` / `stop_trace` / `traced_to` record the CPU and, on a
-    card, CUDA activity of a block into a Chrome trace;
-  * `timed(fn)` -- mean seconds per call: CUDA events when the call returns
-    CUDA tensors, `perf_counter` otherwise;
+    card, CUDA activity of a block, spans included, into a Chrome trace;
   * `enable_anomaly_detection()` -- `torch.autograd.set_detect_anomaly`
     (what `opt.debug_nans` turns on);
   * `checked(fn)` -- raises when the call returns a non-finite value.
@@ -21,16 +21,23 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable, List, Optional
+from typing import Callable, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 
 _active: dict = {}
+_OFF = contextlib.nullcontext()
 
 
 def trace(name: str):
-    """A named span in the profiler's timeline."""
+    """A named span in the profiler's timeline: a `record_function` range
+    (a `user_annotation` event) while a profiler records, else one shared
+    no-op context, so that a span costs a flag read when nobody traces.
+    The program's spans are named `uncltmo.<layer>.<part>` (README,
+    "Tracing the program")."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
 
 
@@ -59,8 +66,11 @@ def stop_trace() -> str:
 
 @contextlib.contextmanager
 def traced_to(log_dir: Optional[str]):
-    """Trace the enclosed block to log_dir (nothing when log_dir is
-    falsy)."""
+    """Trace the enclosed block to {log_dir}/trace.json (nothing when
+    log_dir is falsy): the way to record the program's spans, which cost a
+    flag read and record nothing outside a trace.  Open the trace in
+    Perfetto or `chrome://tracing`; the spans are its `user_annotation`
+    events."""
     if not log_dir:
         yield
         return
@@ -69,41 +79,6 @@ def traced_to(log_dir: Optional[str]):
         yield
     finally:
         stop_trace()
-
-
-def _cuda_tensors(out) -> List[torch.Tensor]:
-    if isinstance(out, torch.Tensor):
-        return [out] if out.is_cuda else []
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (list, tuple)):
-        return [t for o in out for t in _cuda_tensors(o)]
-    return []
-
-
-def timed(fn: Callable, *args, warmup: int = 1, iters: int = 10,
-          **kwargs) -> float:
-    """Mean seconds per call, after `warmup` calls.  When the call returns
-    CUDA tensors, CUDA events on the current stream time it (the card's
-    time, to the end of the last call's work); otherwise `perf_counter`."""
-    out = None
-    for _ in range(warmup):
-        out = fn(*args, **kwargs)
-    if out is None:
-        out = fn(*args, **kwargs)
-    if _cuda_tensors(out):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn(*args, **kwargs)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args, **kwargs)
-    return (time.perf_counter() - t0) / iters
 
 
 def enable_anomaly_detection(enable: bool = True) -> None:
