@@ -482,7 +482,8 @@ def phase_k1(torch, dtypes):
 def k2_registers(plan, dname) -> str:
     """ptxas' register line of the instantiation that serves `plan`."""
     key = (f"{plan.th},{plan.tw},{plan.nwg},{plan.ch},"
-           f"{plan.n2 * plan.cl},{plan.cl},")
+           + (f"{plan.ch1 // plan.cl}," if plan.persistent else "")
+           + f"{plan.n2 * plan.cl},{plan.cl},")
     tag = "/bf16" if dname == "bfloat16" else "/f32"
     for k, v in K2_BUILD.items():
         if (k.startswith(key) and k.endswith(tag)

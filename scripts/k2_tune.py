@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the K2 CUDA source against each other on one card.
 
-    python3 scripts/k2_tune.py [--dtype bfloat16] [--iters 10] [--batch 60] \\
+    python3 scripts/k2_tune.py [--dtype bfloat16] [--iters 10] \\
+        [--batch 60,8] [--frame 1080x1920] [--bits] [--library] \\
         base= 'ch128=@UNCLTMO_K2_CFG256=4,24,2,128,256,4,128,1,3' \\
         'other=path/to/copy.cu::-DSOME_FLAG'
 
@@ -13,12 +14,18 @@ NWG, CH, C2P, CL, CINC, TG, NST (see the source's `Cfg`), the float32 ones
 are the `UNCLTMO_K2F_*` macros.  All variants are built at once (one nvcc
 each) into `chiprun_out/k2_tune/`, with ptxas' registers and spills and
 the SASS count of `HGMMA` per kernel; then each is run at the four
-main-path cells (B = 60: one 1080p frame; `--batch 8`: a rank's training
-batch), with the weights packed under the variant's own plan
+main-path cells at every batch of `--batch` (60: one 1080p frame; 8 and
+16: a rank's training batch and its frames; 120: a video frame step of
+two scenes) and, with `--frame 1080x1920`, at the four B = 1 planes of a
+whole frame, with the weights packed under the variant's own plan
 (`uncltmo_double_conv3x3_plan`), held against the plain version (the error
 is reported, not enforced: a variant may be an ablation) and timed with
-CUDA events, in the order given and once more in reverse.  One JSON line
-per (variant, cell), then one summary line per variant.
+CUDA events, in the order given and once more in reverse.  `--bits`
+holds every variant's output against the first one's bit for bit
+(`same_bits`: a second source that must round as the first);
+`--library` times cuDNN's two convolutions and relus beside them (TF32
+off).  One JSON line per (variant, shape), then one summary line per
+variant and batch.
 """
 from __future__ import annotations
 
@@ -36,6 +43,19 @@ CELLS = [("inc", 1, 32, 32, 256), ("down0", 32, 64, 64, 126),
          ("down1", 64, 128, 128, 61), ("down2", 128, 256, 256, 28)]
 
 
+def frame_planes(h: int, w: int, cells):
+    """The B = 1 inputs of the cells when one whole (h, w) frame goes
+    through the U-Net in one forward: (cell, 1, Cin, C1, C2, H, W)."""
+    from uncltmo_tpu_torch.ops.preprocess import padded_size
+    ph, pw = padded_size(h), padded_size(w)
+    out = []
+    for cell, cin, c1, c2, _ in CELLS:
+        if any(c[0] == cell for c in cells):
+            out.append((cell, 1, cin, c1, c2, ph, pw))
+        ph, pw = (ph - 4) // 2, (pw - 4) // 2
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("variants", nargs="+")
@@ -43,12 +63,21 @@ def main() -> int:
                     choices=["bfloat16", "float32"])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--cells", default="inc,down0,down1,down2")
-    ap.add_argument("--batch", type=int, default=60)
+    ap.add_argument("--batch", default="60",
+                    help="comma-separated batches of the four cells")
+    ap.add_argument("--frame", default="",
+                    help="HxW: also the B = 1 planes of a whole frame")
+    ap.add_argument("--bits", action="store_true",
+                    help="hold each output to the first variant's, bit for "
+                         "bit")
+    ap.add_argument("--library", action="store_true",
+                    help="time cuDNN's two convolutions beside the variants")
     args = ap.parse_args()
     import torch
     from uncltmo_tpu_torch.ops.kernels import build
     from uncltmo_tpu_torch.ops.kernels.double_conv import (
         Plan, double_conv3x3_plain, pack_double_conv_weights)
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("k2_tune: no CUDA device", file=sys.stderr)
         return 2
@@ -102,52 +131,76 @@ def main() -> int:
 
     dtype = getattr(torch, args.dtype)
     g = torch.Generator(device="cuda").manual_seed(2)
+    cells = [c for c in CELLS if c[0] in args.cells.split(",")]
+    shapes = [(cell, int(b), cin, c1, c2, s, s)
+              for b in args.batch.split(",")
+              for cell, cin, c1, c2, s in cells]
+    if args.frame:
+        shapes += frame_planes(*map(int, args.frame.split("x")), cells)
     totals = {name: {} for name, _ in libs}
-    for cell, cin, c1, c2, s in CELLS:
-        if cell not in args.cells.split(","):
-            continue
+    for cell, batch, cin, c1, c2, h, w in shapes:
 
         def rnd(*shape, std=1.0):
             return (torch.randn(shape, generator=g, device="cuda")
                     * std).to(dtype)
-        batch = args.batch
-        x = torch.rand((batch, cin, s, s), generator=g,
+        x = torch.rand((batch, cin, h, w), generator=g,
                        device="cuda").to(dtype)
-        w = (rnd(c1, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5),
-             rnd(c1, std=0.1),
-             rnd(c2, c1, 3, 3, std=(2.0 / (9 * c1)) ** 0.5),
-             rnd(c2, std=0.1))
-        ref = double_conv3x3_plain(x, *w).float()
+        wts = (rnd(c1, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5),
+               rnd(c1, std=0.1),
+               rnd(c2, c1, 3, 3, std=(2.0 / (9 * c1)) ** 0.5),
+               rnd(c2, std=0.1))
+        ref = double_conv3x3_plain(x, *wts).float()
         scale = ref.abs().max().item()
-        y = torch.empty((batch, c2, s - 4, s - 4), dtype=dtype, device="cuda")
+        y = torch.empty((batch, c2, h - 4, w - 4), dtype=dtype,
+                        device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        flops = 2 * 9 * batch * (cin * c1 * (s - 2) ** 2
-                                 + c1 * c2 * (s - 4) ** 2)
+        flops = 2 * 9 * batch * (cin * c1 * (h - 2) * (w - 2)
+                                 + c1 * c2 * (h - 4) * (w - 4))
         code = 0 if dtype == torch.float32 else 1
+        key = f"{cell}/B{batch}" + (f"/{h}x{w}" if h != w else "")
         packs = {}
         for name, handle in libs:
-            plan = (ctypes.c_int * 12)()
+            plan = (ctypes.c_int * len(Plan._fields))()
             handle.uncltmo_double_conv3x3_plan(cin, c1, c2, code, plan)
-            packs[name] = pack_double_conv_weights(*w, plan=Plan(*plan))
-        for name, handle in libs + libs[::-1]:
-            pk = packs[name]
+            plan = Plan(*plan)
+            if plan.ch1 == 0:      # a source from before conv1's blocks
+                plan = plan._replace(ch1=plan.ch)
+            packs[name] = pack_double_conv_weights(*wts, plan=plan)
+        first = None
+        runs = [(name, handle) for name, handle in libs + libs[::-1]]
+        if args.library:
+            runs.insert(len(libs), ("cudnn", None))
+        for name, handle in runs:
+            if handle is None:
+                def run():
+                    F.relu_(F.conv2d(F.relu_(F.conv2d(x, wts[0], wts[1])),
+                                     wts[2], wts[3]))
+            else:
+                pk = packs[name]
 
-            def run():
-                err = handle.uncltmo_double_conv3x3(
-                    x.data_ptr(), pk.w1.data_ptr(), pk.b1.data_ptr(),
-                    pk.w2.data_ptr(), pk.b2.data_ptr(), y.data_ptr(), batch,
-                    cin, s, s, c1, c2, code, stream)
-                if err:
-                    raise RuntimeError(f"{name} {cell}: launch error {err}")
-            y.fill_(float("nan"))
-            try:
-                run()
-            except RuntimeError as e:      # e.g. too much shared memory
-                print(json.dumps({"variant": name, "cell": cell,
-                                  "error": str(e)}), flush=True)
-                continue
-            torch.cuda.synchronize()
-            err = (y.float() - ref).abs().max().item()
+                def run(handle=handle, pk=pk, name=name):
+                    err = handle.uncltmo_double_conv3x3(
+                        x.data_ptr(), pk.w1.data_ptr(), pk.b1.data_ptr(),
+                        pk.w2.data_ptr(), pk.b2.data_ptr(), y.data_ptr(),
+                        batch, cin, h, w, c1, c2, code, stream)
+                    if err:
+                        raise RuntimeError(f"{name} {key}: launch error "
+                                           f"{err}")
+                y.fill_(float("nan"))
+                try:
+                    run()
+                except RuntimeError as e:    # e.g. too much shared memory
+                    print(json.dumps({"variant": name, "shape": key,
+                                      "error": str(e)}), flush=True)
+                    continue
+                torch.cuda.synchronize()
+            row = {"variant": name, "shape": key}
+            if handle is not None:
+                row["rel_err"] = (y.float() - ref).abs().max().item() / scale
+                if args.bits:
+                    if first is None:
+                        first = y.clone()
+                    row["same_bits"] = bool(torch.equal(y, first))
             for _ in range(2):
                 run()
             t0 = torch.cuda.Event(enable_timing=True)
@@ -158,18 +211,20 @@ def main() -> int:
             t1.record()
             torch.cuda.synchronize()
             ms = t0.elapsed_time(t1) / args.iters
-            totals[name].setdefault(cell, []).append(ms)
-            print(json.dumps({"variant": name, "cell": cell, "ms": ms,
-                              "tflops": flops / ms / 1e9,
-                              "rel_err": err / scale}), flush=True)
+            totals.setdefault(name, {}).setdefault(key, []).append(ms)
+            row.update(ms=ms, tflops=flops / ms / 1e9)
+            print(json.dumps(row), flush=True)
+        del x, y, ref, packs
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    for name, cells in totals.items():
-        best = {c: min(v) for c, v in cells.items()}
-        print(json.dumps({"variant": name, "ms": best,
-                          "sum_ms": sum(best.values()), "card": smi}),
-              flush=True)
+    for name, by_shape in totals.items():
+        best = {k: min(v) for k, v in by_shape.items()}
+        for batch in sorted({k.split("/")[1] for k in best}):
+            part = {k: v for k, v in best.items() if k.split("/")[1] == batch}
+            print(json.dumps({"variant": name, "batch": batch, "ms": part,
+                              "sum_ms": sum(part.values()), "card": smi}),
+                  flush=True)
     return 0
 
 

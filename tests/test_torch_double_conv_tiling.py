@@ -48,8 +48,24 @@ def tile_geometry(th, tw, cin1=False):
 
 
 def smem_bytes(cfg, dtype, cin1):
-    """Shared memory of a block of configuration `cfg` = (TH, TW, NWG, CH,
-    C2P, CL, CINC, TG, NST), as `Smem` in the source lays it out."""
+    """Shared memory of a block of configuration `cfg`, as the source lays
+    it out: bfloat16 (TH, TW, NWG, CH, C2P, CL, CINC, TG, NST), `Smem`;
+    float32 (TH, TW, NWG, CH, NB, C2P, CL, CINC, CINS, TG, NST, D2), the
+    persistent kernel's `PSmem` (one plane of A, the intermediate in one
+    or two buffers)."""
+    if dtype == torch.float32:
+        th, tw, nwg, ch, nb, c2p, cl, cinc, cins, tg, nst, _ = cfg
+        p, m2, m1, npos = tile_geometry(th, tw, cin1)
+        slot = _round_up(tg * 2 * 4 * max(0 if cin1 else cinc * nb,
+                                          ch * c2p // cl), 1024)
+        in_b = _round_up(npos * (1 if cin1 else cins) * 4, 128)
+        mid = _round_up(m1 * nb * cl * 4, 128)
+        assert mid >= nwg * 16 * SCR_LD * 4       # the epilogue's scratch
+        rest = (_round_up((2 * nst + 3) * 8, 128)
+                + (10 * nb * cl * 4 if cin1 else 0) + 1024)
+        # two buffers of the intermediate where they fit, else one
+        mids = 2 if nst * slot + in_b + 2 * mid + rest <= SMEM_LIMIT else 1
+        return nst * slot + in_b + mids * mid + rest
     th, tw, nwg, ch, c2p, cl, cinc, tg, nst = cfg
     es = torch.finfo(dtype).bits // 8
     planes = 2 if es == 4 else 1
@@ -73,13 +89,14 @@ def b_image(flat, k, n, dtype):
     return flat.reshape(planes, k * n)[:, idx]
 
 
-def conv1_block(pk, plan, dtype, j, rank, i, tap):
-    """The (planes, K_i, n1) image conv1's stage holds for C1 chunk j, CTA
-    rank, Cin chunk i and tap, at the producer's offset."""
+def conv1_block(pk, plan, dtype, jb, rank, i, tap):
+    """The (planes, K_i, n1) image conv1's stage holds for conv1 block jb
+    (ch1 channels a cluster, n1 = ch1 / cl a CTA), CTA rank, Cin chunk i
+    and tap, at the producer's offset."""
     planes = 2 if dtype == torch.float32 else 1
-    n1 = plan.ch // plan.cl
+    n1 = plan.ch1 // plan.cl
     k = min(plan.cinc, plan.cinp - i * plan.cinc)
-    off = ((j * plan.cl + rank) * 9 * plan.cinp + 9 * i * plan.cinc
+    off = ((jb * plan.cl + rank) * 9 * plan.cinp + 9 * i * plan.cinc
            + tap * k) * planes * n1
     return b_image(pk.w1[off:off + planes * k * n1], k, n1, dtype)
 
@@ -98,18 +115,18 @@ def conv2_block(pk, plan, dtype, y, j, rank, tap):
 def unpack(pk, plan, c1, cin, c2, dtype):
     """OIHW weights back from the packed arrays (float32: hi + lo), and
     asserts that the padding is zero."""
-    n1, n_j = plan.ch // plan.cl, plan.c1p // plan.ch
+    n1, n_j = plan.ch1 // plan.cl, plan.c1p // plan.ch
     w1 = torch.zeros(plan.c1p, max(plan.cinp, cin), 3, 3, dtype=torch.float64)
     if plan.cinp == 1:
         w1[:, 0] = pk.w1.double().reshape(3, 3, plan.c1p).permute(2, 0, 1)
     else:
-        for j in range(n_j):
+        for jb in range(plan.c1p // plan.ch1):
             for r in range(plan.cl):
                 for i in range(-(-plan.cinp // plan.cinc)):
                     for tap in range(9):
-                        img = conv1_block(pk, plan, dtype, j, r, i,
+                        img = conv1_block(pk, plan, dtype, jb, r, i,
                                           tap).double().sum(0)
-                        co = j * plan.ch + r * n1
+                        co = jb * plan.ch1 + r * n1
                         ci = i * plan.cinc
                         w1[co:co + n1, ci:ci + img.shape[0], tap // 3,
                            tap % 3] = img.T
@@ -128,18 +145,41 @@ def unpack(pk, plan, c1, cin, c2, dtype):
     return w1[:c1, :cin], w2[:c2, :c1]
 
 
-def tiled_model(x, w1, b1, w2, b2, plan):
+def persistent_walk(n_items, grid):
+    """The work items (image, C2 pass, tile) that each CTA, or cluster, of
+    a grid of `grid` takes, in its order: from its index in steps of the
+    grid, as the persistent kernel walks them."""
+    return [range(c, n_items, grid) for c in range(grid)]
+
+
+def tiled_model(x, w1, b1, w2, b2, plan, ctas=132, kstep=None):
+    """The kernel's walk: work items item = (image * passes + pass) *
+    tiles + tile, taken by `ctas` / cl persistent CTAs (clusters) in
+    `persistent_walk`'s order (one item a CTA when the plan is not
+    persistent); in each, conv1 in blocks of ch1 intermediate channels
+    over the Cin chunks, taps and k-steps, and conv2 folding each block as
+    sub-chunks of ch channels.  `kstep` None multiplies a stage's chunk at
+    once; 8 joins each k-step's partial (its products summed exactly,
+    rounded to float32 once) to the float32 accumulator by an add, in the
+    kernel's order of joins."""
     b, cin, h, w = x.shape
     c1, c2 = w1.shape[0], w2.shape[0]
     dtype = x.dtype
     pk = pack_double_conv_weights(w1, b1, w2, b2, plan)
     cin1 = plan.cinp == 1
-    th, tw, ch, cl, n2 = plan.th, plan.tw, plan.ch, plan.cl, plan.n2
-    n1, n_j = ch // cl, plan.c1p // ch
+    th, tw, ch, ch1, cl, n2 = (plan.th, plan.tw, plan.ch, plan.ch1, plan.cl,
+                               plan.n2)
+    n1, n_b = ch1 // cl, plan.c1p // ch1
     n_i = 0 if cin1 else -(-plan.cinp // plan.cinc)
     b1p = torch.zeros(plan.c1p).index_copy_(0, torch.arange(c1), b1.float())
+    b2p = torch.zeros(plan.c2p).index_copy_(0, torch.arange(c2), b2.float())
     p, m2, m1, npos = tile_geometry(th, tw, cin1)
     ho, wo = h - 4, w - 4
+    tiles_x = -(-wo // tw)
+    tiles = tiles_x * -(-ho // th)
+    passes = plan.c2p // (cl * n2)
+    n_items = b * passes * tiles
+    grid = min(n_items, ctas // cl) if plan.persistent else n_items
     y = torch.full((b, c2, ho, wo), float("nan"))
     q = torch.arange(m2)
     row, col = q // p, q % p
@@ -147,56 +187,74 @@ def tiled_model(x, w1, b1, w2, b2, plan):
     def weights(img):                       # (planes, k, n) -> float32
         return img.float().sum(0)
 
-    for img in range(b):
-        for ty0 in range(0, ho, th):
-            for tx0 in range(0, wo, tw):
-                # the input tile, zero beyond the image, the tile's rows and
-                # the real channels
-                in_s = torch.zeros(npos, max(plan.cinp, cin), dtype=dtype)
-                rows, cols = min(th + 4, h - ty0), min(p, w - tx0)
-                grid = torch.zeros(cin, th + 4, p, dtype=dtype)
-                grid[:, :rows, :cols] = x[img, :, ty0:ty0 + rows,
-                                          tx0:tx0 + cols]
-                in_s[:(th + 4) * p, :cin] = grid.reshape(cin, -1).T
-                acc2 = torch.zeros(plan.c2p // (cl * n2), cl, m2, n2)
-                for j in range(n_j):
-                    # every CTA of the cluster ends up with the whole chunk
-                    mid = torch.zeros(m1, ch)
-                    for r in range(cl):
-                        acc1 = torch.zeros(m1, n1)
+    def join(acc, a, wt):
+        if kstep is None:
+            return acc + a @ wt
+        for k0 in range(0, a.shape[1], kstep):
+            part = torch.zeros(acc.shape, dtype=torch.float64)
+            for k in range(k0, min(k0 + kstep, a.shape[1])):
+                part += a[:, k, None].double() * wt[None, k].double()
+            acc = acc + part.float()
+        return acc
+
+    for walk in persistent_walk(n_items, grid):
+        for item in walk:
+            img, yp = item // (passes * tiles), (item // tiles) % passes
+            ty0, tx0 = (item % tiles // tiles_x) * th, (item % tiles_x) * tw
+            # the input tile, zero beyond the image, the tile's rows and
+            # the real channels
+            in_s = torch.zeros(npos, max(plan.cinp, cin), dtype=dtype)
+            rows, cols = min(th + 4, h - ty0), min(p, w - tx0)
+            grid_in = torch.zeros(cin, th + 4, p, dtype=dtype)
+            grid_in[:, :rows, :cols] = x[img, :, ty0:ty0 + rows,
+                                         tx0:tx0 + cols]
+            in_s[:(th + 4) * p, :cin] = grid_in.reshape(cin, -1).T
+            acc2 = [torch.zeros(m2, n2) for _ in range(cl)]
+            for jb in range(n_b):
+                # every CTA of the cluster ends up with the whole block
+                mid = torch.zeros(m1, ch1)
+                for r in range(cl):
+                    acc1 = torch.zeros(m1, n1)
+                    lo = jb * ch1 + r * n1
+                    if cin1:
                         for tap in range(9):
                             s = (tap // 3) * p + tap % 3
                             assert s + m1 <= npos
-                            if cin1:
-                                acc1 += in_s[s:s + m1, :1].float() * \
-                                    pk.w1.reshape(9, -1)[
-                                        tap, j * ch + r * n1:
-                                        j * ch + (r + 1) * n1].float()
-                                continue
-                            for i in range(n_i):
-                                k = min(plan.cinc, plan.cinp - i * plan.cinc)
-                                acc1 += (in_s[s:s + m1, i * plan.cinc:
-                                              i * plan.cinc + k].float()
-                                         @ weights(conv1_block(
-                                             pk, plan, dtype, j, r, i, tap)))
-                        lo = j * ch + r * n1
-                        mid[:, r * n1:(r + 1) * n1] = torch.relu(
-                            acc1 + b1p[lo:lo + n1]).to(dtype).float()
-                    for yp in range(acc2.shape[0]):
-                        for r in range(cl):
-                            for tap in range(9):
-                                s = (tap // 3) * p + tap % 3
-                                assert s + m2 <= m1
-                                acc2[yp, r] += mid[s:s + m2] @ weights(
-                                    conv2_block(pk, plan, dtype, yp, j, r,
-                                                tap))
-                # output channel (pass, rank, n) = (pass * cl + rank) * n2 + n
-                out = acc2.permute(2, 0, 1, 3).reshape(m2, -1)[:, :c2]
-                out = torch.relu(out + b2.float()).to(dtype)
-                keep = ((row < th) & (col < tw) & (ty0 + row < ho)
-                        & (tx0 + col < wo))
-                y[img, :, ty0 + row[keep], tx0 + col[keep]] = \
-                    out[keep].float().T
+                            acc1 += in_s[s:s + m1, :1].float() * \
+                                pk.w1.reshape(9, -1)[tap, lo:lo + n1].float()
+                    for i in range(n_i):
+                        k = min(plan.cinc, plan.cinp - i * plan.cinc)
+                        for tap in range(9):
+                            s = (tap // 3) * p + tap % 3
+                            assert s + m1 <= npos
+                            acc1 = join(
+                                acc1, in_s[s:s + m1, i * plan.cinc:
+                                           i * plan.cinc + k].float(),
+                                weights(conv1_block(pk, plan, dtype, jb, r, i,
+                                                    tap)))
+                    mid[:, r * n1:(r + 1) * n1] = torch.relu(
+                        acc1 + b1p[lo:lo + n1]).to(dtype).float()
+                for jj in range(ch1 // ch):
+                    j = jb * (ch1 // ch) + jj
+                    for r in range(cl):
+                        for tap in range(9):
+                            s = (tap // 3) * p + tap % 3
+                            assert s + m2 <= m1
+                            acc2[r] = join(
+                                acc2[r], mid[s:s + m2, jj * ch:(jj + 1) * ch],
+                                weights(conv2_block(pk, plan, dtype, yp, j, r,
+                                                    tap)))
+            # output channel (pass, rank, n) = (pass * cl + rank) * n2 + n
+            c0 = yp * cl * n2
+            out = torch.relu(torch.cat(acc2, dim=1)
+                             + b2p[c0:c0 + cl * n2]).to(dtype)
+            keep = ((row < th) & (col < tw) & (ty0 + row < ho)
+                    & (tx0 + col < wo))
+            co = min(c2, c0 + cl * n2)
+            assert torch.isnan(y[img, c0:co, ty0 + row[keep],
+                                 tx0 + col[keep]]).all()   # stored once
+            y[img, c0:co, ty0 + row[keep], tx0 + col[keep]] = \
+                out[keep][:, :co - c0].float().T
     assert not torch.isnan(y).any()          # every output was stored
     return y.to(dtype)
 
@@ -256,18 +314,55 @@ def test_tiled_scheme_matches_plain(name, cin, c1, c2, h, w, dtype):
 @pytest.mark.parametrize("cl", [1, 2, 4])
 def test_tiled_scheme_with_clusters(cl, dtype):
     """The cluster split at every size, on plans of its own: 2 x 16
-    intermediate channels a chunk, 64 outputs a cluster, two C2 passes."""
+    intermediate channels a chunk, 64 outputs a cluster, two C2 passes;
+    float32 as the persistent kernel walks it, conv1 in one block of both
+    chunks over 4 CTAs (clusters)."""
     args = _inputs(5, 1, 6, 40, 100, 11, 13, dtype)
+    f32 = dtype == torch.float32
     plan = Plan(cinp=16, cinc=16, c1p=64, ch=32, cl=cl, n2=64 // cl,
-                c2p=128, th=3, tw=6, tg=3, nst=2, nwg=2)
-    _check(tiled_model(*args, plan).float(),
+                c2p=128, th=3, tw=6, tg=3, nst=2, nwg=2, ch1=64 if f32 else 32,
+                persistent=int(f32))
+    _check(tiled_model(*args, plan, ctas=4 * cl).float(),
            double_conv3x3_plain(*args).float(), dtype)
+
+
+@pytest.mark.parametrize("n_items,ctas", [(1, 132), (96, 66), (2160, 132),
+                                           (7, 3), (133, 132)])
+def test_persistent_walk_covers_each_item_once(n_items, ctas):
+    """The grid is min(items, CTAs resident at once); its CTAs together
+    take each work item exactly once, and none takes two more than
+    another."""
+    grid = min(n_items, ctas)
+    walks = persistent_walk(n_items, grid)
+    taken = sorted(i for walk in walks for i in walk)
+    assert taken == list(range(n_items))
+    sizes = [len(walk) for walk in walks]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("cin,c1,c2", [(8, 64, 72), (8, 64, 136)],
+                         ids=["down1_blocks", "down2_cluster_blocks"])
+def test_float32_blocks_keep_the_join_order(cin, c1, c2):
+    """conv1 in blocks of ch1 channels (32; 64 over a cluster of 2) with
+    conv2 folding them as ch-channel sub-chunks joins every k-step's
+    partial in the order of the one-chunk-at-a-time walk: the two runs of
+    the model, each k-step's partial added to a float32 accumulator, are
+    equal bit for bit."""
+    args = _inputs(9, 1, cin, c1, c2, 9, 12, torch.float32)
+    plan = default_plan(cin, c1, c2, torch.float32)
+    assert plan.ch1 > plan.ch and plan.persistent
+    chunks = plan._replace(ch1=plan.ch, persistent=0)
+    new = tiled_model(*args, plan, ctas=2 * plan.cl, kstep=8)
+    old = tiled_model(*args, chunks, kstep=8)
+    assert torch.equal(new, old)
+    _check(new, double_conv3x3_plain(*args), torch.float32)
 
 
 GEOMETRIES = sorted({(c[0], c[1], k == "inc")
                      for t in _CFGS.values() for k, c in t.items()}
                     | {(12, 28, False), (8, 31, False), (10, 19, False),
-                       (8, 19, False), (12, 8, False), (8, 8, False)})
+                       (8, 19, False), (12, 8, False), (8, 8, False),
+                       (8, 28, True), (5, 19, False)})
 
 
 @pytest.mark.parametrize("th,tw,cin1", GEOMETRIES)
@@ -300,10 +395,11 @@ def test_padded_channels(cin, c1, c2, want):
 @pytest.mark.parametrize("cin,c1,c2,want", [
     (1, 32, 32, (1, 32, 32)), (32, 64, 64, (32, 64, 64)),
     (64, 128, 128, (64, 128, 128)), (128, 256, 256, (128, 256, 256)),
-    (8, 24, 8, (16, 32, 32)), (40, 33, 65, (64, 48, 128)),
-    (144, 80, 300, (160, 96, 512))])
+    (8, 24, 8, (16, 32, 32)), (40, 33, 65, (64, 64, 128)),
+    (144, 80, 300, (160, 128, 512))])
 def test_padded_channels_float32(cin, c1, c2, want):
-    """float32: Cin to 16, 32 or 32k (a 128-byte row is 32 floats)."""
+    """float32: Cin to 16, 32 or 32k (a 128-byte row is 32 floats), C1 to
+    whole conv1 blocks (`ch1`: 32 at 128 outputs, 64 beyond)."""
     plan = default_plan(cin, c1, c2, torch.float32)
     assert (plan.cinp, plan.c1p, plan.c2p) == want
     assert plan.c2p == padded_c2(c2)
@@ -396,8 +492,14 @@ def test_default_shapes_fit_shared_memory(kind, dtype):
     gives a frame's rank batch (B = 8) at least one CTA an SM."""
     cfg = _CFGS[dtype][kind]
     assert smem_bytes(cfg, dtype, kind == "inc") <= SMEM_LIMIT
-    th, tw, nwg, ch, c2blk, cl, cinc, tg, nst = cfg
-    assert ch % (8 * cl) == 0 and 9 % tg == 0 and 1 <= nwg <= 4
+    if dtype == torch.float32:
+        th, tw, nwg, ch, nb, c2blk, cl, cinc, cins, tg, nst, d2 = cfg
+        assert nb * cl % ch == 0 and cins % cinc == 0 and d2 in (0, 1)
+        assert nb in (16, 32, 64, 128) and 1 <= nwg <= 3
+    else:
+        th, tw, nwg, ch, c2blk, cl, cinc, tg, nst = cfg
+        assert ch % (8 * cl) == 0 and 1 <= nwg <= 4
+    assert 9 % tg == 0
     if kind == 256:
         tiles = -(-24 // th) * -(-24 // tw)
         assert cl > 1 and tiles * 8 * cl >= 132

@@ -23,6 +23,9 @@ removes a whole term of every gradient.  So the backward formula is held to
 possible), and the Function end to end to 2e-3 in the L2 norm and 5e-2 of
 max-abs entry by entry.
 """
+import hashlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -114,6 +117,79 @@ def test_k2_cells_at_frame_and_rank_batches(cuda_device, dtype, b, cin, c1,
     err = (out.float() - ref).abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert err <= tol * ref.abs().max().item()
+
+
+# SHA-256 of K2's output bytes at the four cells, at a rank's batch and at
+# a 1080p frame's 60 tiles, for numpy-seeded inputs (`k2_cell_output`).
+# Recorded from the kernel before its float32 schedule was rebuilt as
+# persistent CTAs: the rebuild keeps every product, partial and float32
+# join in its order, so every output keeps its bits.  Print them with
+# `PYTHONPATH=. python tests/test_torch_kernels_cuda.py` on a card.
+K2_DIGESTS = {
+    "inc/8/float32":
+        "9bfe46dcf3cc5ecc353b40d46ab545cc51de07a87b9c2964371242b2d439d3a4",
+    "inc/8/bfloat16":
+        "d34ae82a55945d4a9fb243dff60f4eba5dd3af6df4625b75fd18a7386b667645",
+    "inc/60/float32":
+        "4839a3ba634c2681933b6942cf0c850ca5a8669b4deb2512fa89c8586ba99d44",
+    "inc/60/bfloat16":
+        "1ac266e3ce2b875b8691b5a7e487465cdecacf28b7e207c0ce53ece27fdc8409",
+    "down0/8/float32":
+        "0a7bdc937d0fb3b0fda35430f6296172244b7889d4e7ad225ac667c2259780d0",
+    "down0/8/bfloat16":
+        "21d5ad8bae31c724737d24b6931061b5cded377d2cf8cbf93d19f1e62587fa82",
+    "down0/60/float32":
+        "35cb944e2b05effc81e5a16d7f04c251e70941e46b9f59a2340817bae89d8144",
+    "down0/60/bfloat16":
+        "eccfea2c60287f9a6a4d1b8a60c2cb839807a3ee89a59e0e0834e0817bc76e7a",
+    "down1/8/float32":
+        "cdcb1b2ab8935b74a44887cc0336656a49c27df2a481ab162e7bbe340b8e83fe",
+    "down1/8/bfloat16":
+        "fa4957c8aa7836b1a295cc46db05f27bab6a5adc4584e273fc1ac56cbd8e7308",
+    "down1/60/float32":
+        "f49f09110c542637987cd7a3b87bff8fe87a0b7d34353a3e5879271fd5d7acaf",
+    "down1/60/bfloat16":
+        "1e6c9ca4d23fe66ebfbc8d1830e4eec9656e6540b5f13fe3870ccae1105d43c8",
+    "down2/8/float32":
+        "23c1394704f584354fe4bacefd77cd42b5e99a5e9ae2722df32eb270e62a1065",
+    "down2/8/bfloat16":
+        "beb6e4301b4555355a9e102cf39a6d0cb786d64369ed953115fcea613391113e",
+    "down2/60/float32":
+        "5493872412c90c3b04378b4a60ef9d364fb318501b037a3960f2e6a2944be53e",
+    "down2/60/bfloat16":
+        "8ee2825d0afa625915a3c2cff497c614b83fb95515c04a69408e550178b4645e",
+}
+
+
+def k2_cell_output(cell: str, b: int, dtype: torch.dtype) -> torch.Tensor:
+    """K2's output at `cell` for inputs drawn with numpy from a seed of
+    the cell and the batch (uniform input, He-scaled weights)."""
+    cin, c1, c2, s = K2_CELLS[["inc", "down0", "down1", "down2"].index(cell)]
+    rng = np.random.default_rng(1000 * cin + b)
+
+    def arr(shape, std=None):
+        a = (rng.random(shape, dtype=np.float32) if std is None else
+             rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+        return torch.from_numpy(a).to("cuda").to(dtype)
+
+    args = (arr((b, cin, s, s)), arr((c1, cin, 3, 3), (2 / (9 * cin)) ** 0.5),
+            arr((c1,), 0.1), arr((c2, c1, 3, 3), (2 / (9 * c1)) ** 0.5),
+            arr((c2,), 0.1))
+    return fused_double_conv3x3(*args)
+
+
+def k2_digest(out: torch.Tensor) -> str:
+    raw = out.contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [8, 60])
+@pytest.mark.parametrize("cell", ["inc", "down0", "down1", "down2"])
+def test_k2_outputs_keep_their_bits(cuda_device, cell, b, dtype):
+    name = f"{cell}/{b}/{str(dtype).split('.')[-1]}"
+    assert k2_digest(k2_cell_output(cell, b, dtype)) == K2_DIGESTS[name]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -298,3 +374,15 @@ def test_k2_function_matches_autograd_of_plain(cuda_device, b, cin, c1, c2,
         assert (f - r).abs().max() <= 1e-4 * r.abs().max()
         assert (a - r).norm() <= 2e-3 * r.norm()
         assert (a - r).abs().max() <= 5e-2 * r.abs().max()
+
+
+if __name__ == "__main__":
+    # the table of `K2_DIGESTS`, from the kernel as it is built here
+    torch.backends.cudnn.allow_tf32 = False
+    for cell in ("inc", "down0", "down1", "down2"):
+        for b in (8, 60):
+            for dtype in (torch.float32, torch.bfloat16):
+                out = k2_cell_output(cell, b, dtype)
+                print(f'    "{cell}/{b}/{str(dtype).split(".")[-1]}":\n'
+                      f'        "{k2_digest(out)}",', flush=True)
+                del out

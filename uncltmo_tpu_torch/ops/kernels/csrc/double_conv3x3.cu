@@ -11,21 +11,24 @@
 // device memory (as the TPU kernel keeps it in VMEM), does each product
 // once, and does it on Hopper's warpgroup tensor-core instructions.
 //
-// One kernel template, `double_conv3x3_wgmma_kernel`, for both element
-// types, accumulating in float32:
-//  * a block (CTA) owns a TH x TW output tile of one image.  Its input tile
-//    with a 2-pixel halo is staged once, transposed to [position][channel]
-//    with position q = row * P + col and ONE pitch P = TW + 4 for input,
-//    intermediate and output.  conv1 is computed at every flattened q of
-//    its M1 rows and stored at the same q, conv2 at every q of its M2 rows
-//    (both multiples of wgmma's 64): tap (ky, kx) of either is the same
-//    array shifted by ky * P + kx positions, so the A operand of the
-//    implicit GEMM (M = positions, N = output channels, K = 9 taps x
-//    channels) is a plain pointer.  The last 2 (conv1) / 4 (conv2) columns
-//    of a row hold wrapped values that feed no valid output and are never
-//    stored;
-//  * warp specialisation: one producer warp moves the weights, NWG consumer
-//    warpgroups run the products.  The weights are packed once on the
+// Two kernels, both accumulating in float32: bfloat16 runs
+// `double_conv3x3_wgmma_kernel`, a block a tile; float32 runs
+// `double_conv3x3_persistent_kernel`, persistent blocks with A in
+// registers.  What they share:
+//  * a block (CTA) computes a TH x TW output tile of one image.  Its input
+//    tile with a 2-pixel halo is staged once, transposed to
+//    [position][channel] with position q = row * P + col and ONE pitch
+//    P = TW + 4 for input, intermediate and output.  conv1 is computed at
+//    every flattened q of its M1 rows and stored at the same q, conv2 at
+//    every q of its M2 rows (both multiples of wgmma's 64): tap (ky, kx) of
+//    either is the same array shifted by ky * P + kx positions, so the A
+//    operand of the implicit GEMM (M = positions, N = output channels,
+//    K = 9 taps x channels) is a plain pointer.  The last 2 (conv1) / 4
+//    (conv2) columns of a row hold wrapped values that feed no valid output
+//    and are never stored;
+//  * warp specialisation: one producer thread moves the weights, NWG
+//    consumer warpgroups run the products (setmaxnreg gives them the
+//    producer warpgroup's registers).  The weights are packed once on the
 //    device (`pack_double_conv_weights` in ops/kernels/double_conv.py) into
 //    the exact byte image of a shared-memory stage as a `wgmma` descriptor
 //    reads it (K-major, rows of 32 / 64 / 128 swizzled bytes), in the order
@@ -33,44 +36,70 @@
 //    `cp.async.bulk ... mbarrier::complete_tx` of contiguous bytes into a
 //    ring of NST stages, with full / empty `mbarrier` pairs between the
 //    producer and the consumers;
-//  * products are `wgmma.mma_async` with both operands in shared memory:
-//    B from the stage through a swizzled descriptor, A from the
-//    [position][channel] arrays, kept as 8-position x 16-byte core
-//    matrices ([channel / (16 / size)][position][16 bytes], no swizzle), in
-//    which a tap's shift of s positions is s * 16 bytes on the descriptor's
-//    start address.  So a warpgroup issues all products of a stage for all
-//    its 64-row tiles back to back, with no register traffic for A;
-//  * float32 is split-TF32: the weights are split into hi = tf32(w) and
-//    lo = tf32(w - hi) at packing time (two planes a stage), the input and
-//    the intermediate as they are written to shared memory (two planes
-//    each), and a product is three wgmmas, lo*hi + hi*lo + hi*hi.  The
-//    tensor cores round their own adds with a bias, so each k-step's
-//    products go to a partial accumulator that joins the float32 one by
-//    ordinary adds (see the float32 `stage_mma`);
-//  * the intermediate is walked in chunks of CH channels: conv1
-//    accumulators -> bias + relu -> rounded to the element type (as the TPU
-//    kernel's `mid.astype(x.dtype)`) -> shared memory, double-buffered, then
-//    folded into the conv2 accumulators, which stay in registers across
-//    chunks.  The intermediate never touches device memory;
+//  * products are `wgmma.mma_async` with B from the stage through a
+//    swizzled descriptor.  The [position][channel] arrays are kept as
+//    8-position x 16-byte core matrices ([channel / (16 / size)][position]
+//    [16 bytes], no swizzle), in which a tap's shift of s positions is
+//    s * 16 bytes;
+//  * the intermediate: conv1 accumulators -> bias + relu -> rounded to the
+//    element type (as the TPU kernel's `mid.astype(x.dtype)`) -> shared
+//    memory, then folded into the conv2 accumulators, which stay in
+//    registers over all of C1.  The intermediate never touches device
+//    memory;
 //  * thread-block clusters of CL CTAs (down2: 2) share one spatial tile:
-//    CTA rank r computes conv1 for channels [r * CH / CL, (r + 1) * CH / CL)
-//    of every chunk and pushes them into its own and its peers'
-//    intermediate buffers (`st.shared::cluster`), then signals each peer's
-//    `mbarrier` with release semantics at cluster scope; each CTA then runs
-//    conv2 for its C2P / CL output channels over all of C1.  conv1 is still
-//    computed once per tile and the grid has CL times the blocks;
+//    CTA rank r computes conv1 for its 1 / CL of each block of intermediate
+//    channels and pushes them into its own and its peers' intermediate
+//    buffers (`st.shared::cluster`), then signals each peer's `mbarrier`
+//    with release semantics at cluster scope; each CTA then runs conv2 for
+//    its C2P / CL output channels over all of C1.  conv1 is still computed
+//    once per tile;
 //  * Cin == 1 (inc): conv1 is 9 FMAs a value, done on the CUDA cores
 //    straight into the intermediate; only conv2 uses the tensor cores;
-//  * conv2's epilogue goes through a per-warpgroup scratch (over the dead
-//    input tile) so that the NCHW stores run along W;
+//  * conv2's epilogue goes through a per-warpgroup scratch in shared memory
+//    so that the NCHW stores run along W;
 //  * a wait on an `mbarrier` that makes no progress for 20 s traps (a
 //    launch error) instead of hanging the card.
+// bfloat16, a block a tile: A from shared memory through the descriptor
+// too, so a warpgroup issues all products of a stage for all its 64-row
+// tiles back to back and waits once; the intermediate walked in chunks of
+// CH channels, double-buffered.
+// float32 is split-TF32: the weights are split into hi = tf32(w) and lo =
+// tf32(w - hi) at packing time (two planes a stage), every A value as it
+// is loaded, and a product is three wgmmas, lo*hi + hi*lo + hi*hi.  The
+// tensor cores round their own adds with a bias, so each k-step's products
+// go to partial accumulators that join the float32 one by ordinary adds
+// (`stage_mma_rs`), whose order fixes every output's rounding.  What bounds
+// it on Hopper, measured by ablation: a per-k-step join with one group of
+// products in flight (latency, not the adds), conv1 products of N = 16 too
+// small to hide that latency, two planes of every A operand in shared
+// memory (which pinned short tiles) and a block's set-up and staging
+// repeated for every tile.  The design answers:
+//  * A in registers: each k-step loads the lane's four float32 values of
+//    its wgmma fragment from ONE plane in shared memory and splits them
+//    there, so the input tile and the intermediate take half the bytes and
+//    A is read from shared memory once a k-step instead of three times;
+//  * conv1 in blocks of NB channels a CTA (32 or 64 where the registers
+//    hold them: down1, down2): each k-step's three products are N = NB wide
+//    for the same latency, and conv2 folds a block as the same CH-channel
+//    sub-chunks in the same order as a chunk at a time would;
+//  * persistent blocks: as many CTAs (clusters) as are resident, each
+//    walking the work items (image, C2 pass, tile) in steps of the grid, so
+//    that the producer streams the next item's first weight stages during
+//    an item's epilogue, each CTA is set up once and the whole input tile
+//    is staged once an item (down2's 128 channels fit now);
+//  * one warpgroup per 64-row tile of conv2 where three fit the registers
+//    (inc, down0: 3 consumer warpgroups), the intermediate in one buffer
+//    where two do not fit (down2), a `mbarrier` then holding the next
+//    block's write until every consumer of the cluster has read it.
+// Every float32 output is bit for bit what the earlier two-plane kernel
+// gave: the same products into the same partials, joined in the same
+// order (tests/test_torch_kernels_cuda.py `K2_DIGESTS`).
 //
-// Tile shape, warpgroups, chunk, cluster, stages and Cin staging width are
-// template parameters per element type and output-channel width (`Cfg`);
-// `uncltmo_double_conv3x3_plan` tells the packing which were chosen.
-// Plain C interface, loaded with ctypes: no PyTorch headers, so nvcc builds
-// it in seconds.
+// Tile shape, warpgroups, chunks and blocks, cluster, stages and Cin
+// staging width are template parameters per element type and
+// output-channel width (`Cfg`, `PCfg`); `uncltmo_double_conv3x3_plan`
+// tells the packing which were chosen.  Plain C interface, loaded with
+// ctypes: no PyTorch headers, so nvcc builds it in seconds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +122,7 @@ constexpr int SMEM_LIMIT = 232448;     // bytes a block may use on sm_90
 constexpr int SCR_LD = 64 + 4;         // epilogue scratch: [16][SCR_LD]
 
 // What differs between the element types: bytes, the depth of one wgmma
-// (KS), planes of every operand (float32: TF32 hi and lo) and elements per
+// (KS), planes of the weights (float32: TF32 hi and lo) and elements per
 // 16 bytes (a core matrix row).
 template <typename T> struct Elem;
 template <> struct Elem<bf16> {
@@ -129,7 +158,8 @@ struct Cfg {
   static constexpr int TH = TH_, TW = TW_, NWG = NWG_, CH = CH_, C2P = C2P_,
                        CL = CL_, CINC = CINC_, TG = TG_, NST = NST_,
                        G = 9 / TG_;
-  static constexpr bool CIN1 = CIN1_;
+  static constexpr bool CIN1 = CIN1_, PERSISTENT = false;
+  static constexpr int CH1 = CH;                        // conv1's block
   static constexpr int P = TW + 4;                      // the one pitch
   static constexpr int M2 = round_up(TH * P, 64);       // conv2 positions
   static constexpr int M2T = M2 / 64;
@@ -195,11 +225,6 @@ __device__ __forceinline__ unsigned to_tf32(float x) {
   unsigned r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-// x = hi + lo with both in tf32: the split that keeps float32 products right
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = __uint_as_float(to_tf32(x));
-  lo = __uint_as_float(to_tf32(x - hi));
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -423,106 +448,12 @@ template <> struct Wgmma<bf16, 128> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
-template <> struct Wgmma<float, 8> {
-  __device__ __forceinline__ static void mma(float (&d)[4], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3}, "
-        "%4, %5, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-template <> struct Wgmma<float, 16> {
-  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "%8, %9, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-template <> struct Wgmma<float, 32> {
-  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-template <> struct Wgmma<float, 64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-template <> struct Wgmma<float, 128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
 // ---- end PTX wrappers ----
 
-__device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
 template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16(v);
 }
@@ -637,121 +568,11 @@ __device__ __forceinline__ void stage_mma(float (&acc)[MW][N / 2], bf16*,
   }
 }
 
-// float32: three products a k-step (lo*hi, hi*lo, hi*hi: the lo*lo term is
-// below float32's rounding) into partial accumulators per tile, which join
-// acc by float32 adds (rounded to nearest) after every k-step.  The tensor
-// cores round their own adds with a bias toward smaller values that grows
-// with the products chained (one k-step: -7e-9 to -1.6e-8 of the output
-// scale, `scripts/k2_numerics.py` on an H100), and a bias moves every
-// activation near zero the same way, which the encoder's gradient through
-// 0.5 / sqrt(x2 + 1e-8) amplifies.  A tile of N <= 64 keeps lo*hi + hi*hi
-// and hi*lo in two partials, added together first: which products share a
-// partial fixes every output's rounding, and with it the training step's
-// card-vs-CPU check at the published epsilon (this split passed it in
-// every repeat of `scripts/k2_numerics.py`; splitting only N <= 32 fell,
-// in some, into a mode that cuDNN's run-to-run variation selects).  A
-// k-step's products for all the warpgroup's tiles are one group; where
-// two sets of partials fit the registers the groups alternate between
-// them, so that one k-step's products run while the previous one is
-// added.  Each tile's k-steps are added in order, whichever way they are
-// scheduled.
-template <class C, int N, int MW>
-__device__ __forceinline__ void stage_mma(float (&acc)[MW][N / 2], float*,
-                                          int mt0, int mstep, int mtn,
-                                          uint32_t a, int rows, int plane,
-                                          int tap0, int k, uint32_t stage,
-                                          int n_img, int n0) {
-  constexpr bool DUAL = N <= 64;
-  constexpr int H = DUAL ? 2 : 1;                   // partials a tile
-  constexpr int S = 2 * H * MW * N / 2 <= 64 ? 2 : 1;   // sets
-  const int ksteps = k / 8;                 // even: K is 16, 32 or 32k
-  const BWalk bw = b_walk<float>(stage, k, n_img, n0);
-  const uint32_t a_step = (2 * rows * 16) >> 4, a_plane = plane >> 4;
-  // set [s], tile [mm]: [0] hi*lo (and, unless DUAL, the others), [H-1]
-  // lo*hi + hi*hi
-  float sl[S][MW][H][N / 2];
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int mm = 0; mm < MW; ++mm)
-#pragma unroll
-      for (int h = 0; h < H; ++h)
-#pragma unroll
-        for (int e = 0; e < N / 2; ++e) sl[s][mm][h][e] = 0.f;
-  // set s's products are done: add them to the tiles' acc
-  auto add = [&](float (&p)[MW][H][N / 2]) {
-#pragma unroll
-    for (int mm = 0; mm < MW; ++mm) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) fence_regs(p[mm][h]);
-      if (mt0 + mm * mstep >= mtn) continue;
-#pragma unroll
-      for (int e = 0; e < N / 2; ++e)
-        acc[mm][e] += DUAL ? p[mm][0][e] + p[mm][H - 1][e] : p[mm][0][e];
-    }
-  };
-  bool live = false;            // every set holds a group in flight
-#pragma unroll 1
-  for (int u = 0; u < C::TG; ++u) {
-    const int tap = tap0 + u;
-    const int shift = (tap / 3) * C::P + tap % 3;
-    uint64_t ad[MW];
-#pragma unroll
-    for (int mm = 0; mm < MW; ++mm)
-      ad[mm] = a_desc(a, rows, (mt0 + mm * mstep) * 64 + shift);
-    uint64_t b_hi = bw.desc + u * bw.tap;
-    int col = 0;
-    for (int kk = 0; kk < ksteps; kk += S) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        auto& p = sl[s];
-        if (live) {
-          wgmma_wait<S - 1>();        // this set's previous k-step is done
-          add(p);
-        }
-#pragma unroll
-        for (int mm = 0; mm < MW; ++mm)
-#pragma unroll
-          for (int h = 0; h < H; ++h) fence_regs(p[mm][h]);
-        wgmma_fence();
-        const uint64_t b_lo = b_hi + bw.plane;
-#pragma unroll
-        for (int mm = 0; mm < MW; ++mm) {
-          if (mt0 + mm * mstep >= mtn) continue;
-          Wgmma<float, N>::mma(p[mm][H - 1], ad[mm] + a_plane, b_hi, 0);
-          Wgmma<float, N>::mma(p[mm][0], ad[mm], b_lo, DUAL ? 0 : 1);
-          Wgmma<float, N>::mma(p[mm][H - 1], ad[mm], b_hi, 1);
-          ad[mm] += a_step;
-        }
-        wgmma_commit();
-        if (++col == bw.row_steps) {   // the next k-step's weights
-          col = 0;
-          b_hi += bw.blk - (bw.row_steps - 1) * 2;
-        } else {
-          b_hi += 2;
-        }
-        live = live || s == S - 1;
-      }
-    }
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int s = 0; s < S; ++s) add(sl[s]);
-}
-
-// Stores of the [chunk][position][16 bytes] arrays: one value, or a pair
-// (v0, v1) at an even channel, in every plane (float32: TF32 hi, lo), into
-// this CTA's shared memory (`addr` generic) or a peer's (`addr` cluster).
+// Stores of the [chunk][position][16 bytes] arrays: a pair (v0, v1) at an
+// even channel into this CTA's shared memory (`addr` generic) or a peer's
+// (`addr` cluster); VEC values.
 __device__ __forceinline__ void put_pair(bf16* p, int, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ void put_pair(float* p, int plane, float v0,
-                                         float v1) {
-  float h0, l0, h1, l1;
-  split_tf32(v0, h0, l0);
-  split_tf32(v1, h1, l1);
-  *reinterpret_cast<float2*>(p) = make_float2(h0, h1);
-  *reinterpret_cast<float2*>(p + plane) = make_float2(l0, l1);
 }
 __device__ __forceinline__ void put_pair_cluster(bf16*, uint32_t addr, int,
                                                  float v0, float v1) {
@@ -760,32 +581,10 @@ __device__ __forceinline__ void put_pair_cluster(bf16*, uint32_t addr, int,
                "r"(*reinterpret_cast<unsigned*>(&v))
                : "memory");
 }
-__device__ __forceinline__ void put_pair_cluster(float*, uint32_t addr,
-                                                 int plane, float v0,
-                                                 float v1) {
-  float h0, l0, h1, l1;
-  split_tf32(v0, h0, l0);
-  split_tf32(v1, h1, l1);
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
-               "f"(h0), "f"(h1)
-               : "memory");
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(
-                   addr + plane * 4),
-               "f"(l0), "f"(l1)
-               : "memory");
-}
 // VEC values (16 bytes) at p in every plane
 __device__ __forceinline__ void put_vec(bf16* p, int, const bf16* v) {
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
 }
-__device__ __forceinline__ void put_vec(float* p, int plane, const float* v) {
-  float h[4], l[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split_tf32(v[e], h[e], l[e]);
-  *reinterpret_cast<float4*>(p) = make_float4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<float4*>(p + plane) = make_float4(l[0], l[1], l[2], l[3]);
-}
-
 template <class C, typename T>
 __global__ void __launch_bounds__(C::NT, 1)
 double_conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w1p,
@@ -1099,16 +898,653 @@ double_conv3x3_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w1p,
   }
 }
 
+// ---- float32: the persistent kernel ----
+
+// d (64 x N, f32, this warpgroup's) (+)= a (64 x 8, TF32, in registers) x
+// b (8 x N, shared memory through a descriptor).  Lane (g, t) of warp w
+// holds a[0..3] = A[16w + g][t], A[16w + g + 8][t], A[16w + g][t + 4],
+// A[16w + g + 8][t + 4]; d as in `Wgmma`.
+template <int N> struct WgmmaRS;
+template <> struct WgmmaRS<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+template <> struct WgmmaRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }
+};
+template <int N>
+__device__ __forceinline__ void fence_regs_u(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// One float32 instantiation: an output tile of TH x TW pixels; NWG
+// consumer warpgroups; conv1 in blocks of NB channels a CTA (CL * NB a
+// cluster: NB is conv1's wgmma N), each folded into conv2 as sub-chunks
+// of CH channels; C2P (padded) output channels for a cluster of CL CTAs;
+// input channels packed CINC to a weight stage and held CINS at a time in
+// shared memory; TG taps a weight stage and NST stages in the ring.  D2:
+// conv2's hi*lo products in a partial of their own (conv1's always are).
+// CIN1: Cin == 1, conv1 on the CUDA cores.  CH, CINC and D2 fix every
+// output's rounding; the rest only the schedule.
+template <int TH_, int TW_, int NWG_, int CH_, int NB_, int C2P_, int CL_,
+          int CINC_, int CINS_, int TG_, int NST_, int D2_, bool CIN1_>
+struct PCfg {
+  static constexpr int TH = TH_, TW = TW_, NWG = NWG_, CH = CH_, NB = NB_,
+                       C2P = C2P_, CL = CL_, CINC = CINC_, CINS = CINS_,
+                       TG = TG_, NST = NST_, G = 9 / TG_;
+  static constexpr bool D2 = D2_ != 0, CIN1 = CIN1_, PERSISTENT = true;
+  static constexpr int P = TW + 4;
+  static constexpr int M2 = round_up(TH * P, 64), M2T = M2 / 64;
+  static constexpr int M1 = round_up(M2 + 2 * P + 2, CIN1 ? 8 : 64);
+  static constexpr int M1T = M1 / 64;
+  static constexpr int NPOS = M1 + 2 * P + 2;
+  // consumers + one producer warpgroup (one thread of it copies; the
+  // rest give their registers to the consumers with setmaxnreg)
+  static constexpr int NC = NWG * 128, NT = NC + 128;
+  static constexpr int REG_PRODUCER = 40;
+  static constexpr int REG_CONSUMER =
+      imin(((65536 - 128 * REG_PRODUCER) / NC) / 8 * 8, 240);
+  static constexpr int CH1 = NB * CL, N2 = C2P / CL;
+  static constexpr int WM2 = M2T < NWG ? M2T : NWG, WN2 = NWG / WM2;
+  static constexpr int N2W = N2 / WN2, M2W = ceil_div(M2T, WM2);
+  static constexpr int M1W = ceil_div(M1T, NWG);
+  static_assert(TG == 1 || TG == 3 || TG == 9, "taps per weight stage");
+  static_assert(CL == 1 || CL == 2 || CL == 4, "cluster size");
+  static_assert(CH % 8 == 0 && CH1 % CH == 0, "conv2's sub-chunks");
+  static_assert(CIN1 || NB == 16 || NB == 32 || NB == 64 || NB == 128,
+                "conv1's wgmma N");
+  static_assert(NWG % WM2 == 0 &&
+                    (N2W == 16 || N2W == 32 || N2W == 64 || N2W == 128),
+                "conv2's wgmma N");
+  static_assert(!CIN1 || (CL == 1 && CH1 % 8 == 0), "Cin == 1");
+  static_assert(CIN1 || CINS % CINC == 0, "staged Cin chunks");
+  static_assert(NWG >= 1 && NWG <= 3, "warpgroups");
+};
+
+// Shared memory of a persistent block: every operand in one plane of
+// float32 (the TF32 split is made in registers), the input held CINS
+// channels at a time, the intermediate's blocks in MIDB buffers (the
+// epilogue's scratch lies over the last one, dead by then).
+template <class C> struct PSmem {
+  static constexpr int SLOT = round_up(
+      C::TG * 2 * 4 * imax(C::CIN1 ? 0 : C::CINC * C::NB, C::CH * C::N2),
+      1024);
+  static constexpr int RING = 0;
+  static constexpr int IN = C::NST * SLOT;
+  static constexpr int IN_BYTES =
+      round_up(C::NPOS * (C::CIN1 ? 1 : C::CINS) * 4, 128);
+  static constexpr int MID = IN + IN_BYTES;
+  static constexpr int MID_BUF = round_up(C::M1 * C::CH1 * 4, 128);
+  static constexpr int NBAR = 2 * C::NST + 3;
+  static constexpr int REST = round_up(NBAR * 8, 128) +
+                              (C::CIN1 ? 10 * C::CH1 * 4 : 0) + 1024;
+  // two buffers of the intermediate where they fit, else one that the
+  // next block waits to write until every consumer is done with it
+  static constexpr int MIDB = MID + 2 * MID_BUF + REST <= SMEM_LIMIT ? 2 : 1;
+  static constexpr int BAR = MID + MIDB * MID_BUF;
+  static constexpr int W1S = BAR + round_up(NBAR * 8, 128);
+  static constexpr int END = W1S + (C::CIN1 ? 10 * C::CH1 * 4 : 0);
+  static constexpr int TOTAL = END + 1024;
+  static_assert(TOTAL <= SMEM_LIMIT, "shared memory of a block");
+  static_assert(C::CIN1 || C::CINC == 16 || C::CINC % 32 == 0,
+                "Cin chunks are whole swizzle rows");
+  static_assert(MID_BUF >= C::NWG * 16 * SCR_LD * 4, "epilogue scratch");
+};
+
+// The float32 products of one weight stage with A from registers:
+// acc[mm] (tiles mt0 + mm * mstep < mtn, N columns) += the products of the
+// stage's TG taps from tap0 over the k channels of each.  `a` is a float32
+// array [channel / 4][`rows` positions][4]; a tap shifts it by whole
+// positions.  Each k-step loads the lane's four values and splits them into
+// TF32 hi and lo (the bits the two-plane kernel stored); its three products
+// (lo*hi, hi*lo, hi*hi: the lo*lo term is below float32's rounding) go to
+// partial accumulators that join acc by float32 adds (rounded to nearest)
+// in k-step order.  The tensor cores round their own adds with a bias
+// toward smaller values that grows with the products chained (one k-step:
+// -7e-9 to -1.6e-8 of the output scale, `scripts/k2_numerics.py` on an
+// H100), and a bias moves every activation near zero the same way, which
+// the encoder's gradient through 0.5 / sqrt(x2 + 1e-8) amplifies.  DUAL
+// keeps hi*lo in a partial of its own, added to lo*hi + hi*hi first: which
+// products share a partial fixes every output's rounding, and with it the
+// training step's card-vs-CPU check at the published epsilon (`PCfg::D2`).
+// The next k-step's values are read before the wait on this one; two sets
+// of partials in flight ran slower than one.
+template <class C, int N, int MW, bool DUAL>
+__device__ __forceinline__ void stage_mma_rs(float (&acc)[MW][N / 2],
+                                             const float* a, int rows,
+                                             int mt0, int mstep, int mtn,
+                                             int tap0, int k, uint32_t stage,
+                                             int n_img, int n0) {
+  constexpr int H = DUAL ? 2 : 1;
+  const int ksteps = k / 8;
+  const BWalk bw = b_walk<float>(stage, k, n_img, n0);
+  // tile [mm]: [0] hi*lo (and, unless DUAL, the others), [H-1] lo*hi +
+  // hi*hi; fragments [0] hi, [1] lo
+  float p[MW][H][N / 2];
+  uint32_t f[MW][2][4];
+#pragma unroll
+  for (int mm = 0; mm < MW; ++mm) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) p[mm][h][e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[mm][0][e] = f[mm][1][e] = 0u;
+  }
+  // the k-step in flight is done: add its partials to acc
+  auto add = [&]() {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mm = 0; mm < MW; ++mm) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) fence_regs(p[mm][h]);
+      fence_regs_u(f[mm][0]);       // the fragments are free only now
+      fence_regs_u(f[mm][1]);
+      if (mt0 + mm * mstep >= mtn) continue;
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e)
+        acc[mm][e] += DUAL ? p[mm][0][e] + p[mm][H - 1][e] : p[mm][0][e];
+    }
+  };
+  bool live = false;            // a k-step is in flight
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
+  a += (16 * w4 + (lane >> 2)) * 4 + (lane & 3);    // the lane's element
+#pragma unroll 1
+  for (int u = 0; u < C::TG; ++u) {
+    const int tap = tap0 + u;
+    const int shift = (tap / 3) * C::P + tap % 3;
+    const float* ap[MW];
+#pragma unroll
+    for (int mm = 0; mm < MW; ++mm)
+      ap[mm] = a + ((mt0 + mm * mstep) * 64 + shift) * 4;
+    uint64_t b_hi = bw.desc + u * bw.tap;
+    int col = 0;
+    for (int kk = 0; kk < ksteps; ++kk) {
+      // this k-step's channels kk * 8 + {t, t + 4} at the lane's rows
+      float v[MW][4];
+#pragma unroll
+      for (int mm = 0; mm < MW; ++mm) {
+        if (mt0 + mm * mstep >= mtn) continue;
+        v[mm][0] = ap[mm][0];
+        v[mm][1] = ap[mm][32];
+        v[mm][2] = ap[mm][rows * 4];
+        v[mm][3] = ap[mm][rows * 4 + 32];
+        ap[mm] += 2 * rows * 4;
+      }
+      if (live) add();
+#pragma unroll
+      for (int mm = 0; mm < MW; ++mm) {
+        if (mt0 + mm * mstep < mtn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            f[mm][0][e] = to_tf32(v[mm][e]);
+            f[mm][1][e] = to_tf32(v[mm][e] - __uint_as_float(f[mm][0][e]));
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < H; ++h) fence_regs(p[mm][h]);
+        fence_regs_u(f[mm][0]);
+        fence_regs_u(f[mm][1]);
+      }
+      wgmma_fence();
+      const uint64_t b_lo = b_hi + bw.plane;
+#pragma unroll
+      for (int mm = 0; mm < MW; ++mm) {
+        if (mt0 + mm * mstep >= mtn) continue;
+        WgmmaRS<N>::mma(p[mm][H - 1], f[mm][1], b_hi, 0);
+        WgmmaRS<N>::mma(p[mm][0], f[mm][0], b_lo, DUAL ? 0 : 1);
+        WgmmaRS<N>::mma(p[mm][H - 1], f[mm][0], b_hi, 1);
+      }
+      wgmma_commit();
+      live = true;
+      if (++col == bw.row_steps) {     // the next k-step's weights
+        col = 0;
+        b_hi += bw.blk - (bw.row_steps - 1) * 2;
+      } else {
+        b_hi += 2;
+      }
+    }
+  }
+  add();
+}
+
+// The input tile at (ty0, tx0) of image `xb` with its halo, [channel / 4]
+// [position][4] from channel c0 (`nc` channels), zero beyond the image,
+// below the tile's rows and in the padded channels: thread t of nt, the
+// global reads along W.
+template <class C>
+__device__ __forceinline__ void stage_tile(float* in_s, const float* xb,
+                                           int ty0, int tx0, int c0, int nc,
+                                           int cin, int h, int w, int t,
+                                           int nt) {
+  constexpr int P = C::P;
+  if constexpr (C::CIN1) {
+    for (int pos = t; pos < C::NPOS; pos += nt) {
+      const int gy = ty0 + pos / P, gx = tx0 + pos % P;
+      in_s[pos] = (pos < (C::TH + 4) * P && gy < h && gx < w)
+                      ? xb[(size_t)gy * w + gx]
+                      : 0.f;
+    }
+  } else {
+    const int cvn = nc / 4;
+#pragma unroll 2
+    for (int idx = t; idx < cvn * C::NPOS; idx += nt) {
+      const int cv = idx / C::NPOS, pos = idx % C::NPOS;
+      const int gy = ty0 + pos / P, gx = tx0 + pos % P;
+      const int ci = c0 + cv * 4;
+      const bool in = pos < (C::TH + 4) * P && gy < h && gx < w;
+      const float* src = xb + ((size_t)ci * h + gy) * w + gx;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = (in && ci + e < cin) ? src[(size_t)e * h * w] : 0.f;
+      *reinterpret_cast<float4*>(in_s + (cv * C::NPOS + pos) * 4) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The float32 kernel: persistent CTAs (clusters), each walking the work
+// items (image, C2 pass, tile) from its index in steps of the grid, so
+// that the weight ring streams on from one item into the next and each
+// CTA is set up once.  The products and their order are those of the
+// two-plane kernel; see the design note at the head of the file.
+template <class C>
+__global__ void __launch_bounds__(C::NT, 1)
+double_conv3x3_persistent_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1p,
+    const float* __restrict__ b1, const float* __restrict__ w2p,
+    const float* __restrict__ b2, float* __restrict__ y, int batch, int cin,
+    int h, int w, int c1, int c2, int cinp, int c1p, int cinc, int tiles_x,
+    int tiles, int passes) {
+  using L = PSmem<C>;
+  constexpr int P = C::P;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  float* in_s = reinterpret_cast<float*>(smem + L::IN);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int rank = C::CL > 1 ? cluster_rank() : 0;
+  const int first = blockIdx.x / C::CL, step = gridDim.x / C::CL;
+  const int n_items = batch * passes * tiles;
+  const int ho = h - 4, wo = w - 4;
+  const int n_i = C::CIN1 ? 0 : ceil_div(cinp, cinc);      // Cin chunks
+  // the whole input tile stays in shared memory for the item
+  const bool resident = !C::CIN1 && cinp <= C::CINS;
+  const int n_b = c1p / C::CH1, n_j = c1p / C::CH;          // conv1 blocks
+  constexpr int SUB = C::CH1 / C::CH;        // conv2's sub-chunks a block
+  const int per_b = (n_i + SUB) * C::G;      // weight stages of a block
+  const uint32_t full0 = sbase + L::BAR, empty0 = full0 + 8 * C::NST;
+  const uint32_t midf0 = empty0 + 8 * C::NST;    // intermediate written
+  const uint32_t mide = midf0 + 16;       // one buffer: every read is done
+  constexpr int MIDB = L::MIDB;
+
+  if (tid == 0) {
+    for (int i = 0; i < C::NST; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, C::NC / 32);
+    }
+    mbar_init(midf0, C::CL * C::NC / 32);
+    mbar_init(midf0 + 8, C::CL * C::NC / 32);
+    mbar_init(mide, C::CL * C::NC / 32);
+    mbar_fence_init();
+  }
+  if (C::CL > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  if (warp >= C::NC / 32) {
+    // The producer: for each item, each block's conv1 stages ([Cin
+    // chunk][tap group]) then its conv2 stages ([sub-chunk][tap group]),
+    // each one contiguous block of the packed weights.  The two roles
+    // never reconverge (setmaxnreg needs that).
+    setmaxnreg_dec<C::REG_PRODUCER>();
+    if (warp == C::NC / 32 && lane == 0) {
+      int s = 0;
+      for (int item = first; item < n_items; item += step) {
+        const int pass = (item / tiles) % passes;
+        for (int jb = 0; jb < n_b; ++jb)
+          for (int r = 0; r < per_b; ++r, ++s) {
+            const int slot = s % C::NST;
+            if (s >= C::NST)
+              mbar_wait<false>(empty0 + 8 * slot, (s / C::NST - 1) & 1);
+            const float* src;
+            int elems;
+            if (r < n_i * C::G) {
+              const int i = r / C::G, tap = (r % C::G) * C::TG;
+              const int k = min(cinc, cinp - i * cinc);
+              src = w1p + ((size_t)(jb * C::CL + rank) * 9 * cinp +
+                           9 * i * cinc + tap * k) * 2 * C::NB;
+              elems = C::TG * k * 2 * C::NB;
+            } else {
+              const int rr = r - n_i * C::G, j = jb * SUB + rr / C::G;
+              const int tap = (rr % C::G) * C::TG;
+              src = w2p + ((size_t)((pass * n_j + j) * C::CL + rank) * 9 +
+                           tap) * C::CH * 2 * C::N2;
+              elems = C::TG * C::CH * 2 * C::N2;
+            }
+            mbar_expect_tx(full0 + 8 * slot, elems * 4);
+            bulk_copy(sbase + L::RING + slot * L::SLOT, src, elems * 4,
+                      full0 + 8 * slot);
+          }
+      }
+    }
+    if (C::CL > 1) cluster_sync();
+    return;
+  }
+
+  setmaxnreg_inc<C::REG_CONSUMER>();
+  const int wg = warp >> 2;                  // the consumer warpgroup
+  const int g = lane >> 2, t4 = lane & 3;    // a lane's place in a tile
+  const int row_w = (warp & 3) * 16 + g;     // its first row in a tile
+  const int wm2 = wg % C::WM2, wn2 = wg / C::WM2;
+  constexpr int N1T = C::CIN1 ? 16 : C::NB;
+  float acc1[C::CIN1 ? 1 : C::M1W][N1T / 2];
+  int s = 0, jbg = 0;                        // stages and blocks so far
+
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    mbar_arrive(bar, lane == 0);
+  };
+  // this warp has written its part of the intermediate / read all of it,
+  // in every CTA of the cluster
+  auto announce = [&](uint32_t bar) {
+    __syncwarp();
+    if (C::CL == 1)
+      mbar_arrive(bar, lane == 0);
+    else
+#pragma unroll
+      for (int d = 0; d < C::CL; ++d)
+        mbar_arrive_cluster(bar, d, lane == 0);
+  };
+  // with one buffer, block jbg is written once block jbg - 1 is read
+  auto wait_free = [&]() {
+    if (MIDB == 1 && jbg > 0)
+      mbar_wait<(C::CL > 1)>(mide, (jbg - 1) & 1);
+  };
+
+  for (int item = first, n = 0; item < n_items; item += step, ++n) {
+    const int img = item / (passes * tiles), pass = (item / tiles) % passes;
+    const int tile = item % tiles;
+    const int ty0 = (tile / tiles_x) * C::TH, tx0 = (tile % tiles_x) * C::TW;
+    const float* xb = x + (size_t)img * cin * h * w;
+
+    float acc2[C::M2W][C::N2W / 2];
+#pragma unroll
+    for (int mm = 0; mm < C::M2W; ++mm)
+#pragma unroll
+      for (int e = 0; e < C::N2W / 2; ++e) acc2[mm][e] = 0.f;
+    // the whole input tile, while the other warpgroups may still be in
+    // the previous item's last conv2 stages or epilogue
+    if (C::CIN1 || resident) {
+      stage_tile<C>(in_s, xb, ty0, tx0, 0, C::CIN1 ? 1 : cinp, cin, h, w,
+                    tid, C::NC);
+      named_sync(1, C::NC);
+    }
+    for (int jb = 0; jb < n_b; ++jb, ++jbg) {
+      const int b = jbg % MIDB;
+      float* mid = reinterpret_cast<float*>(smem + L::MID + b * L::MID_BUF);
+      if constexpr (!C::CIN1) {
+        // conv1: this CTA's NB channels of block jb, over every Cin chunk
+#pragma unroll
+        for (int mm = 0; mm < C::M1W; ++mm)
+#pragma unroll
+          for (int e = 0; e < C::NB / 2; ++e) acc1[mm][e] = 0.f;
+        for (int i = 0; i < n_i; ++i) {
+          if (!resident) {
+            named_sync(1, C::NC);       // every warpgroup is done with it
+            stage_tile<C>(in_s, xb, ty0, tx0, i * cinc,
+                          min(cinc, cinp - i * cinc), cin, h, w, tid, C::NC);
+            named_sync(1, C::NC);
+          }
+          const int k = min(cinc, cinp - i * cinc);
+          const float* a =
+              in_s + (resident ? i * cinc * C::NPOS : 0);
+          for (int tg = 0; tg < C::G; ++tg, ++s) {
+            const int slot = s % C::NST;
+            mbar_wait<false>(full0 + 8 * slot, (s / C::NST) & 1);
+            stage_mma_rs<C, C::NB, C::M1W, true>(
+                acc1, a, C::NPOS, wg, C::NWG, C::M1T, tg * C::TG, k,
+                sbase + L::RING + slot * L::SLOT, C::NB, 0);
+            release(empty0 + 8 * slot);
+          }
+        }
+        // bias + relu, from the accumulator registers into the block of
+        // the intermediate of every CTA of the cluster
+        wait_free();
+#pragma unroll
+        for (int mm = 0; mm < C::M1W; ++mm) {
+          const int mt = wg + mm * C::NWG;
+          if (mt >= C::M1T) continue;
+          const int row = mt * 64 + row_w;
+#pragma unroll
+          for (int nb = 0; nb < C::NB / 8; ++nb) {
+            const int n = rank * C::NB + nb * 8 + 2 * t4;
+            const int gc1 = jb * C::CH1 + n;
+            const float bias0 = gc1 < c1 ? b1[gc1] : 0.f;
+            const float bias1 = gc1 + 1 < c1 ? b1[gc1 + 1] : 0.f;
+            const float* av = &acc1[mm][nb * 4];
+            float* p0 = mid + ((n / 4) * C::M1 + row) * 4 + n % 4;
+            float* p1 = p0 + 8 * 4;
+            const float2 v0 = make_float2(fmaxf(av[0] + bias0, 0.f),
+                                          fmaxf(av[1] + bias1, 0.f));
+            const float2 v1 = make_float2(fmaxf(av[2] + bias0, 0.f),
+                                          fmaxf(av[3] + bias1, 0.f));
+            if (C::CL == 1) {
+              *reinterpret_cast<float2*>(p0) = v0;
+              *reinterpret_cast<float2*>(p1) = v1;
+            } else {
+#pragma unroll
+              for (int d = 0; d < C::CL; ++d) {
+                asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+                             ::"r"(mapa(smem_u32(p0), d)), "f"(v0.x),
+                             "f"(v0.y)
+                             : "memory");
+                asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+                             ::"r"(mapa(smem_u32(p1), d)), "f"(v1.x),
+                             "f"(v1.y)
+                             : "memory");
+              }
+            }
+          }
+        }
+        announce(midf0 + 8 * b);
+      } else {
+        // conv1 of this block on the CUDA cores (9 FMAs a value)
+        float* w1s = reinterpret_cast<float*>(smem + L::W1S);
+        named_sync(1, C::NC);           // every warp is done with w1s
+        for (int idx = tid; idx < 10 * C::CH1; idx += C::NC) {
+          const int t = idx / C::CH1, c = idx % C::CH1;
+          const int gc1 = jb * C::CH1 + c;
+          w1s[idx] = t < 9 ? w1p[(size_t)t * c1p + gc1]
+                           : (gc1 < c1 ? b1[gc1] : 0.f);
+        }
+        named_sync(1, C::NC);
+        wait_free();
+        constexpr int C8 = C::CH1 / 8;
+        for (int idx = tid; idx < C::M1 * C8; idx += C::NC) {
+          const int qq = idx % C::M1, c0 = (idx / C::M1) * 8;
+          float v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = w1s[9 * C::CH1 + c0 + e];
+#pragma unroll
+          for (int t = 0; t < 9; ++t) {
+            const float xv = in_s[qq + (t / 3) * P + t % 3];
+            const float4 wa =
+                *reinterpret_cast<const float4*>(w1s + t * C::CH1 + c0);
+            const float4 wb =
+                *reinterpret_cast<const float4*>(w1s + t * C::CH1 + c0 + 4);
+            const float wv[8] = {wa.x, wa.y, wa.z, wa.w,
+                                 wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] = fmaf(xv, wv[e], v[e]);
+          }
+          *reinterpret_cast<float4*>(mid + ((c0 / 4) * C::M1 + qq) * 4) =
+              make_float4(fmaxf(v[0], 0.f), fmaxf(v[1], 0.f),
+                          fmaxf(v[2], 0.f), fmaxf(v[3], 0.f));
+          *reinterpret_cast<float4*>(mid + ((c0 / 4 + 1) * C::M1 + qq) * 4) =
+              make_float4(fmaxf(v[4], 0.f), fmaxf(v[5], 0.f),
+                          fmaxf(v[6], 0.f), fmaxf(v[7], 0.f));
+        }
+        announce(midf0 + 8 * b);
+      }
+      // block jb of the intermediate is whole, in this CTA
+      mbar_wait<(C::CL > 1)>(midf0 + 8 * b, (jbg / MIDB) & 1);
+      // conv2: fold its sub-chunks into the accumulators (registers), in
+      // the order of the C1 chunks
+      for (int jj = 0; jj < SUB; ++jj)
+        for (int tg = 0; tg < C::G; ++tg, ++s) {
+          const int slot = s % C::NST;
+          mbar_wait<false>(full0 + 8 * slot, (s / C::NST) & 1);
+          stage_mma_rs<C, C::N2W, C::M2W, C::D2>(
+              acc2, mid + jj * C::CH * C::M1, C::M1, wm2, C::WM2,
+              C::M2T, tg * C::TG, C::CH, sbase + L::RING + slot * L::SLOT,
+              C::N2, wn2 * C::N2W);
+          release(empty0 + 8 * slot);
+        }
+      if (MIDB == 1 && jb < n_b - 1) announce(mide);
+    }
+
+    // Epilogue, 16 channels at a time: a warpgroup's accumulators -> its
+    // scratch (over the last block of the intermediate, dead once every
+    // warpgroup is done with it), [channel][position] -> bias + relu ->
+    // NCHW with the lanes along W, masked at the image edge and the
+    // wrapped columns.
+    named_sync(1, C::NC);
+    float* scr = reinterpret_cast<float*>(
+                     smem + L::MID + (jbg - 1) % MIDB * L::MID_BUF) +
+                 wg * 16 * SCR_LD;
+    float* yb = y + (size_t)img * c2 * ho * wo;
+    const int c2_0 = pass * C::C2P + rank * C::N2 + wn2 * C::N2W;
+    const int wtid = tid & 127;
+#pragma unroll
+    for (int mm = 0; mm < C::M2W; ++mm) {
+      const int mt = wm2 + mm * C::WM2;
+      if (mt >= C::M2T) continue;
+#pragma unroll
+      for (int ns = 0; ns < C::N2W / 16; ++ns) {
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const float* av = &acc2[mm][(ns * 2 + nb) * 4];
+          float* dst = scr + (nb * 8 + 2 * t4) * SCR_LD + row_w;
+          dst[0] = av[0];
+          dst[SCR_LD] = av[1];
+          dst[8] = av[2];
+          dst[SCR_LD + 8] = av[3];
+        }
+        named_sync(2 + wg, 128);
+#pragma unroll 2
+        for (int it = 0; it < 8; ++it) {
+          const int idx = it * 128 + wtid, c = idx >> 6, m = idx & 63;
+          const int qq = mt * 64 + m, rr = qq / P, cc = qq % P;
+          const int gy = ty0 + rr, gx = tx0 + cc, ch = c2_0 + ns * 16 + c;
+          if (rr < C::TH && cc < C::TW && gy < ho && gx < wo && ch < c2)
+            yb[((size_t)ch * ho + gy) * wo + gx] =
+                fmaxf(scr[c * SCR_LD + m] + b2[ch], 0.f);
+        }
+        named_sync(2 + wg, 128);
+      }
+    }
+    if (MIDB == 1) announce(mide);     // the scratch is free
+  }
+  if (C::CL > 1) cluster_sync();
+}
+
 // What the packing and the launch share (see `uncltmo_double_conv3x3_plan`)
 struct Plan {
-  int cinp, cinc, c1p, ch, cl, n2, c2p, th, tw, tg, nst, nwg;
+  int cinp, cinc, c1p, ch, cl, n2, c2p, th, tw, tg, nst, nwg, ch1,
+      persistent;
 };
 
 template <class C, typename T> Plan make_plan(int cin, int c1, int c2p) {
   Plan p;
   p.cinp = C::CIN1 ? 1 : padded_cin(cin, Elem<T>::ES);
   p.cinc = C::CIN1 ? 1 : imin(p.cinp, C::CINC);
-  p.c1p = round_up(c1, C::CH);
+  p.c1p = round_up(c1, C::CH1);
   p.ch = C::CH;
   p.cl = C::CL;
   p.n2 = C::N2;
@@ -1118,6 +1554,8 @@ template <class C, typename T> Plan make_plan(int cin, int c1, int c2p) {
   p.tg = C::TG;
   p.nst = C::NST;
   p.nwg = C::NWG;
+  p.ch1 = C::CH1;
+  p.persistent = C::PERSISTENT;
   return p;
 }
 
@@ -1169,23 +1607,89 @@ int launch(const void* x, const void* w1p, const void* b1, const void* w2p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The persistent float32 kernel: as many CTAs (clusters) as are resident
+// at once, at most one a work item.
+template <class C>
+int launch_persistent(const void* x, const void* w1p, const void* b1,
+                      const void* w2p, const void* b2, void* y, int batch,
+                      int cin, int h, int w, int c1, int c2, int c2p,
+                      cudaStream_t stream) {
+  const Plan p = make_plan<C, float>(cin, c1, c2p);
+  auto kernel = double_conv3x3_persistent_kernel<C>;
+  constexpr int smem = PSmem<C>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = ceil_div(w - 4, C::TW);
+  const int tiles = tiles_x * ceil_div(h - 4, C::TH);
+  const int passes = c2p / C::C2P;
+  const long long items = (long long)batch * passes * tiles;
+  if (items > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C::CL, 1, 1);
+  cfg.blockDim = dim3(C::NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C::CL > 1 ? 1 : 0;
+  // CTAs (clusters) resident at once on this card, found once per card
+  static int resident[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int fit = dev < 64 ? resident[dev] : 0;
+  if (fit == 0) {
+    if (C::CL > 1) {
+      err = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    } else {
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          C::NT, smem);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+      fit = per_sm * sms;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fit == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (dev < 64) resident[dev] = fit;
+  }
+  cfg.gridDim = dim3((int)(items < fit ? items : fit) * C::CL, 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
+                           static_cast<const float*>(w1p),
+                           static_cast<const float*>(b1),
+                           static_cast<const float*>(w2p),
+                           static_cast<const float*>(b2),
+                           static_cast<float*>(y), batch, cin, h, w, c1, c2,
+                           p.cinp, p.c1p, p.cinc, tiles_x, tiles, passes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instantiations, one per element type and output-channel width, the
 // fastest of those timed with `scripts/k2_tune.py` on an H100 80GB HBM3.
 // Tile shapes follow the U-Net's cells (outputs of 252, 122, 57 and 24
 // pixels a side).  bfloat16: 12 x 28 = 336 of 384 positions (inc), 7 x 31
 // with whole 9-tap stages (down0), 2 whole rows of 57 (down1), 2 whole rows
 // of 24 with a cluster of 2 and 128-channel chunks (down2: 12 tiles x 2
-// CTAs an image, so that B = 8 gives 192 CTAs for 132 SMs).  float32 holds every
-// A operand in two planes and flushes a partial every k-step, so its tiles
-// are shorter, its chunks 16 or 32 channels, its Cin staged 32 or 64 at a
-// time, and down2 takes a cluster of 2 over 2-row tiles (12 x 2 CTAs an
-// image).  ptxas compiles the consumers to the launch's 168 registers a
-// thread (the producer warpgroup counts; setmaxnreg moves registers at run
-// time only): a 4-row down1 tile spills.  The float32 Cin and C1 chunk
-// widths fix the order of every output's sum, which the training step's
-// card-vs-CPU check at the published epsilon is sensitive to.  A build may
-// override a shape with a `#define UNCLTMO_K2_CFG64 ...` in a
-// force-included header (`scripts/k2_tune.py` times such variants).
+// CTAs an image, so that B = 8 gives 192 CTAs for 132 SMs).  float32 (the
+// persistent kernel): 12 x 28 and 5 x 31 over three warpgroups (inc,
+// down0: a 64-row conv2 tile each; conv1 N = 16, as a wider block does not
+// fit their 152 registers), 2 whole rows of 57 with conv1 blocks of 32
+// (down1: two 64-row conv1 tiles a warpgroup, where 5 x 19 gave one
+// warpgroup two and the other one and ran 13% slower), 2 x 24 with a
+// cluster of 2, conv1 blocks of 64 a CTA and the whole 128-channel input
+// resident (down2).  Its CH (16, down2 32), CINC (the Cin chunk of a
+// weight stage) and D2 (down1 0, the rest 1) are those of the two-plane
+// kernel it replaced and fix the order of every output's sum, which the
+// training step's card-vs-CPU check at the published epsilon is sensitive
+// to; the other fields only schedule.  A build may override a shape with a
+// `#define UNCLTMO_K2_CFG64 ...` in a force-included header
+// (`scripts/k2_tune.py` times such variants).
 //      TH, TW, NWG, CH, C2P, CL, CINC, TG, NST
 #ifndef UNCLTMO_K2_CFGINC
 #define UNCLTMO_K2_CFGINC 12, 28, 2, 32, 32, 1, 64, 9, 2
@@ -1202,20 +1706,21 @@ int launch(const void* x, const void* w1p, const void* b1, const void* w2p,
 #ifndef UNCLTMO_K2_CFG256
 #define UNCLTMO_K2_CFG256 2, 24, 2, 128, 256, 2, 128, 1, 3
 #endif
+//      TH, TW, NWG, CH, NB, C2P, CL, CINC, CINS, TG, NST, D2
 #ifndef UNCLTMO_K2F_CFGINC
-#define UNCLTMO_K2F_CFGINC 8, 28, 2, 16, 32, 1, 32, 3, 3
+#define UNCLTMO_K2F_CFGINC 12, 28, 3, 16, 16, 32, 1, 32, 32, 3, 3, 1
 #endif
 #ifndef UNCLTMO_K2F_CFG32
-#define UNCLTMO_K2F_CFG32 4, 28, 2, 16, 32, 1, 32, 1, 4
+#define UNCLTMO_K2F_CFG32 4, 28, 2, 16, 16, 32, 1, 32, 32, 1, 4, 1
 #endif
 #ifndef UNCLTMO_K2F_CFG64
-#define UNCLTMO_K2F_CFG64 5, 31, 2, 16, 64, 1, 32, 1, 3
+#define UNCLTMO_K2F_CFG64 5, 31, 3, 16, 16, 64, 1, 32, 32, 3, 3, 1
 #endif
 #ifndef UNCLTMO_K2F_CFG128
-#define UNCLTMO_K2F_CFG128 5, 19, 2, 16, 128, 1, 64, 1, 3
+#define UNCLTMO_K2F_CFG128 2, 57, 2, 16, 32, 128, 1, 64, 64, 3, 2, 0
 #endif
 #ifndef UNCLTMO_K2F_CFG256
-#define UNCLTMO_K2F_CFG256 2, 24, 2, 32, 256, 2, 64, 1, 2
+#define UNCLTMO_K2F_CFG256 2, 24, 2, 32, 64, 256, 2, 64, 128, 1, 2, 1
 #endif
 template <typename T> struct Cfgs;
 template <> struct Cfgs<bf16> {
@@ -1226,11 +1731,11 @@ template <> struct Cfgs<bf16> {
   using C256 = Cfg<UNCLTMO_K2_CFG256, false>;    // down2: 128 -> 256 -> 256
 };
 template <> struct Cfgs<float> {
-  using Inc = Cfg<UNCLTMO_K2F_CFGINC, true>;
-  using C32 = Cfg<UNCLTMO_K2F_CFG32, false>;
-  using C64 = Cfg<UNCLTMO_K2F_CFG64, false>;
-  using C128 = Cfg<UNCLTMO_K2F_CFG128, false>;
-  using C256 = Cfg<UNCLTMO_K2F_CFG256, false>;
+  using Inc = PCfg<UNCLTMO_K2F_CFGINC, true>;
+  using C32 = PCfg<UNCLTMO_K2F_CFG32, false>;
+  using C64 = PCfg<UNCLTMO_K2F_CFG64, false>;
+  using C128 = PCfg<UNCLTMO_K2F_CFG128, false>;
+  using C256 = PCfg<UNCLTMO_K2F_CFG256, false>;
 };
 
 // C2 padded to the output-channel width of a configuration: 32, 64, 128 or
@@ -1256,8 +1761,13 @@ int dispatch(const void* x, const void* w1p, const void* b1, const void* w2p,
   const int c2p = padded_c2(c2);
   if (c2p > 256 * 65535) return static_cast<int>(cudaErrorInvalidValue);
   return with_cfg<T>(cin, c2p, [&](auto c) {
-    return launch<decltype(c), T>(x, w1p, b1, w2p, b2, y, batch, cin, h, w,
+    using C = decltype(c);
+    if constexpr (C::PERSISTENT)
+      return launch_persistent<C>(x, w1p, b1, w2p, b2, y, batch, cin, h, w,
                                   c1, c2, c2p, s);
+    else
+      return launch<C, T>(x, w1p, b1, w2p, b2, y, batch, cin, h, w, c1, c2,
+                          c2p, s);
   });
 }
 
@@ -1265,9 +1775,10 @@ template <typename T> int plan_of(int cin, int c1, int c2, int* out) {
   const int c2p = padded_c2(c2);
   return with_cfg<T>(cin, c2p, [&](auto c) {
     const Plan p = make_plan<decltype(c), T>(cin, c1, c2p);
-    const int v[12] = {p.cinp, p.cinc, p.c1p, p.ch,  p.cl,  p.n2,
-                       p.c2p,  p.th,   p.tw,  p.tg,  p.nst, p.nwg};
-    for (int i = 0; i < 12; ++i) out[i] = v[i];
+    const int v[14] = {p.cinp, p.cinc, p.c1p, p.ch,  p.cl,  p.n2,
+                       p.c2p,  p.th,   p.tw,  p.tg,  p.nst, p.nwg,
+                       p.ch1,  p.persistent};
+    for (int i = 0; i < 14; ++i) out[i] = v[i];
     return 0;
   });
 }
@@ -1311,10 +1822,12 @@ int uncltmo_double_conv3x3(const void* x, const void* w1p, const void* b1,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The configuration that serves (cin, c1, c2, dtype), as 12 ints: padded
+// The configuration that serves (cin, c1, c2, dtype), as 14 ints: padded
 // Cin, Cin staged at a time, padded C1, the C1 chunk, the cluster size,
 // output channels a CTA, padded C2, tile height and width, taps a weight
-// stage, stages, consumer warpgroups.  Returns 0, or a cudaError_t.
+// stage, stages, consumer warpgroups, conv1's block of intermediate
+// channels (a cluster's) and 1 for the persistent kernel.  Returns 0, or a
+// cudaError_t.
 int uncltmo_double_conv3x3_plan(int cin, int c1, int c2, int dtype,
                                 int* out) {
   if (cin < 1 || c1 < 1 || c2 < 1 || !elem_built(dtype))

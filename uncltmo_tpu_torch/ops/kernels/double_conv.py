@@ -72,24 +72,27 @@ class Plan(NamedTuple):
     tg: int        # taps a weight stage
     nst: int       # weight stages in the ring
     nwg: int       # consumer warpgroups
+    ch1: int       # intermediate channels of one conv1 pass (a cluster's)
+    persistent: int  # 1: the persistent float32 kernel
 
 
-# The defaults of `csrc/double_conv3x3.cu` (`UNCLTMO_K2_CFG*`, float32
-# `UNCLTMO_K2F_CFG*`): (TH, TW, NWG, CH, C2P, CL, CINC, TG, NST) by
-# element type and output-channel width ("inc": Cin == 1, C2 <= 32).  On a
-# CUDA tensor the plan comes from the built library itself; this table
-# serves the packing of CPU tensors.
+# The defaults of `csrc/double_conv3x3.cu` by element type and
+# output-channel width ("inc": Cin == 1, C2 <= 32): bfloat16
+# (`UNCLTMO_K2_CFG*`) as (TH, TW, NWG, CH, C2P, CL, CINC, TG, NST), float32
+# (`UNCLTMO_K2F_CFG*`, the persistent kernel) as (TH, TW, NWG, CH, NB, C2P,
+# CL, CINC, CINS, TG, NST, D2).  On a CUDA tensor the plan comes from the
+# built library itself; this table serves the packing of CPU tensors.
 _CFGS = {
     torch.bfloat16: {"inc": (12, 28, 2, 32, 32, 1, 64, 9, 2),
                      32: (12, 28, 2, 32, 32, 1, 64, 3, 3),
                      64: (7, 31, 2, 32, 64, 1, 64, 9, 2),
                      128: (2, 57, 2, 32, 128, 1, 64, 3, 3),
                      256: (2, 24, 2, 128, 256, 2, 128, 1, 3)},
-    torch.float32: {"inc": (8, 28, 2, 16, 32, 1, 32, 3, 3),
-                    32: (4, 28, 2, 16, 32, 1, 32, 1, 4),
-                    64: (5, 31, 2, 16, 64, 1, 32, 1, 3),
-                    128: (5, 19, 2, 16, 128, 1, 64, 1, 3),
-                    256: (2, 24, 2, 32, 256, 2, 64, 1, 2)},
+    torch.float32: {"inc": (12, 28, 3, 16, 16, 32, 1, 32, 32, 3, 3, 1),
+                    32: (4, 28, 2, 16, 16, 32, 1, 32, 32, 1, 4, 1),
+                    64: (5, 31, 3, 16, 16, 64, 1, 32, 32, 3, 3, 1),
+                    128: (2, 57, 2, 16, 32, 128, 1, 64, 64, 3, 2, 0),
+                    256: (2, 24, 2, 32, 64, 256, 2, 64, 128, 1, 2, 1)},
 }
 
 
@@ -113,12 +116,18 @@ def default_plan(cin: int, c1: int, c2: int, dtype: torch.dtype) -> Plan:
     """The plan of the source's default configurations (see `_CFGS`)."""
     c2p = padded_c2(c2)
     cin1 = c2p == 32 and cin == 1
-    th, tw, nwg, ch, c2blk, cl, cinc_max, tg, nst = _CFGS[dtype][
-        "inc" if cin1 else min(c2p, 256)]
+    cfg = _CFGS[dtype]["inc" if cin1 else min(c2p, 256)]
+    if dtype == torch.float32:
+        th, tw, nwg, ch, nb, c2blk, cl, cinc_max, _, tg, nst, _ = cfg
+        ch1, persistent = nb * cl, 1
+    else:
+        th, tw, nwg, ch, c2blk, cl, cinc_max, tg, nst = cfg
+        ch1, persistent = ch, 0
     es = torch.finfo(dtype).bits // 8
     cinp = 1 if cin1 else padded_cin(cin, es)
-    return Plan(cinp, 1 if cin1 else min(cinp, cinc_max), _round_up(c1, ch),
-                ch, cl, c2blk // cl, c2p, th, tw, tg, nst, nwg)
+    return Plan(cinp, 1 if cin1 else min(cinp, cinc_max), _round_up(c1, ch1),
+                ch, cl, c2blk // cl, c2p, th, tw, tg, nst, nwg, ch1,
+                persistent)
 
 
 def kernel_plan(cin: int, c1: int, c2: int, dtype: torch.dtype,
@@ -127,7 +136,7 @@ def kernel_plan(cin: int, c1: int, c2: int, dtype: torch.dtype,
     library's own on a CUDA device, `default_plan` elsewhere."""
     if torch.device(device).type != "cuda":
         return default_plan(cin, c1, c2, dtype)
-    out = (ctypes.c_int * 12)()
+    out = (ctypes.c_int * len(Plan._fields))()
     lib = _library(dtype)
     err = lib.uncltmo_double_conv3x3_plan(cin, c1, c2, _DTYPE_CODE[dtype],
                                           out)
@@ -187,23 +196,23 @@ def _pack_order(plan: Plan, es: int, device: torch.device):
     arrays (Cin == 1: [tap][C1_p]), in the order in which the kernel's
     producer copies them into its weight stages:
 
-    * w1: [C1 chunk][cluster rank][Cin chunk][tap][plane][image of Cin
-      chunk x rank's ch / cl channels];
-    * w2: [C2 pass of cl * n2][C1 chunk][rank][tap][plane][image of ch x
-      n2].
+    * w1: [conv1 block of ch1][cluster rank][Cin chunk][tap][plane][image
+      of Cin chunk x rank's ch1 / cl channels];
+    * w2: [C2 pass of cl * n2][C1 chunk of ch][rank][tap][plane][image of
+      ch x n2].
     Computed once per plan, element size and device."""
     planes = 2 if es == 4 else 1
-    cl, ch, n1 = plan.cl, plan.ch, plan.ch // plan.cl
-    n_j = plan.c1p // ch
+    cl, ch, n1 = plan.cl, plan.ch, plan.ch1 // plan.cl
+    n_j, n_b = plan.c1p // ch, plan.c1p // plan.ch1
     if plan.cinp == 1:
         o1 = torch.arange(9 * plan.c1p)
     else:
         src = torch.arange(planes * 9 * plan.c1p * plan.cinp).reshape(
-            planes, 9, n_j, cl, n1, plan.cinp)
-        # (plane, j, rank, tap, n, cin) per Cin chunk
+            planes, 9, n_b, cl, n1, plan.cinp)
+        # (plane, block, rank, tap, n, cin) per Cin chunk
         src = src.permute(0, 2, 3, 1, 4, 5)
         o1 = torch.cat([
-            _images(src[..., i:i + plan.cinc], es).reshape(n_j, cl, -1)
+            _images(src[..., i:i + plan.cinc], es).reshape(n_b, cl, -1)
             for i in range(0, plan.cinp, plan.cinc)], dim=2).reshape(-1)
     ny = plan.c2p // (cl * plan.n2)
     src = torch.arange(planes * 9 * plan.c2p * plan.c1p).reshape(
