@@ -22,8 +22,9 @@ One JSON line per phase:
  1. device: the card's name and power limit (nvidia-smi);
  2. build: nvcc of the CUDA kernels for sm_90a (K2: one library per
     element type, both started at the top of `main`, before torch is
-    imported), Triton's first compiles meanwhile; per K2 instantiation
-    ptxas' registers and spills
+    imported; the float32 one also holds the decoder's up cell), Triton's
+    first compiles meanwhile; per K2 and up-cell instantiation ptxas'
+    registers and spills
     and its SASS inventory (`cuobjdump -sass`: HGMMA, HMMA, UBLKCP,
     UTMALDG), which must show HGMMA and bulk copies and no HMMA;
  3. K1 (Triton skip concat) vs plain at the four Up shapes, B=60, f32/bf16;
@@ -31,10 +32,16 @@ One JSON line per phase:
     inc/down0..2 shapes, B=60 and B=8, f32/bf16, timed, each row with the
     cluster size, tile and registers of its configuration (f32 rows also
     with the split-TF32 bound); then untimed at ragged and padded shapes;
+    then (`k2_up_cell`) the decoder's up cell, float32, vs plain at the
+    up0..3 shapes, B=60, timed beside what it replaced, K1 with cuDNN's
+    two ConvTs and relus, with cuDNN's default algorithms and with
+    `cudnn.benchmark` on, each row with its plan and TFLOP/s;
  5. the generator forward (8x1x256x256) with the kernels vs all-plain;
  6. end to end: synthetic 1080x1920 .hdr files -> PNGs in f32 and bf16,
-    kernel launch counts of that run, warm frames/s, and a small image
-    checked against the same runner on the CPU (plain versions);
+    kernel launch counts of that run (`serve_launches`: a float32 forward
+    launches K2 and the up cell 4 times each and K1 never, a bfloat16 one
+    K2 and K1), warm frames/s, and a small image checked against the same
+    runner on the CPU (plain versions);
  7. k1_extra / k2_extra (untimed): both kernels vs plain at the shapes the
     other paths give them: B=120 tiles (two scenes in one video frame
     step), the four B=1 planes of a whole 1080p frame, and the training
@@ -75,7 +82,8 @@ One JSON line per phase:
     against the one-process step from the same state, batch and drop path
     (image G stages 0-2 and stage 0 at epsilon 1e-2, video G stage 0),
     beside the one-process step against itself; the ranks' digests equal,
-    every rank's K1 / K1 backward / K2 launches, step ms a rank, peak
+    every rank's K1 / K1 backward / K2 / up-cell launches, step ms a rank,
+    peak
     memory; `TileEngine(devices=[d0, d1])` on a 1080p frame and a 4-frame
     scene (also `batchMax`) against the one-device engine;
 15. tester: `training.tester.Tester` for the image and the video
@@ -102,12 +110,13 @@ One JSON line per phase:
     (launches: K1 only) and that generator served on a 1080p frame by the
     card's runner and on a small frame by the card's and the CPU's (PNGs
     within one level); one forward at
-    the published width of every other option with its K1 / K2 launches;
+    the published width of every other option with its K1 / K2 / up-cell
+    launches;
 19. assessment: `GanTrainer.run_final_assessment` of an image-G trainer
     on 16 synthetic 540x960 HDR inputs (15 `.hdr`, one ZIP / HALF `.exr`)
     rendered at 1/2 size, with the FID against 16 real PNGs on seeded
     Inception weights (the published ones are not in the repository):
-    16 PNGs, K1 and K2 4 launches a render, the FID stored under the
+    16 PNGs, K2 and the up cell 4 launches a render, the FID stored under the
     model's name, the card's activations against the CPU extractor's and
     the FID of each, the FID's seconds by stage (decode + resample on the
     host, the extractor on the card, sqrtm on the host); `compute_metrics`
@@ -131,12 +140,12 @@ One JSON line per phase:
     device record.  On the card: the published generator in float32 over
     the PIZ HALF, PXR24 FLOAT, B44A HALF, DWAA HALF, DWAB HALF, a tiled
     PIZ HALF and a luminance/chroma ZIP file through `run_on_path`,
-    against their `.npy` twins (PNGs within one level), K1 / K2 launches,
+    against their `.npy` twins (PNGs within one level), K2 / up-cell launches,
     files fps beside end_to_end's `.hdr` files fps;
 21. the kernels line (launches summed over all paths; K2 under autograd
     is an entry of its own per dtype, with its backward's bound, and so
-    is K1's backward), the nvidia-smi line, and `{"ok": true, ...}`
-    last.
+    is K1's backward; the up cell's entry carries the k2 phase's sums at
+    B = 60), the nvidia-smi line, and `{"ok": true, ...}` last.
 
 Every record carries `at_s`, the seconds since the script started.
 
@@ -172,6 +181,11 @@ K2_SHAPES = [("inc", 1, 32, 32, 256), ("down0", 32, 64, 64, 126),
 BATCH = 60                    # tiles of one 1080p frame at 256/64
 K1_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (8e-3, 1e-6)}  # (rtol, atol)
 K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max err / max |plain|
+# the decoder's up cells (skip channels C, C1 = C2, skip side): float32
+# only, timed inside the k2 phase beside cuDNN's two ConvTs and K1
+UP_SHAPES = [("up0", 256, 128, 24), ("up1", 128, 64, 57), ("up2", 64, 32, 122),
+             ("up3", 32, 32, 252)]
+UP_TOL = 1e-4                 # max err / max |plain|
 # untimed: ragged sizes and channel counts that need padding, more input
 # channels than one staging chunk, more output channels than one pass
 K2_RAGGED = [(2, 16, 24, 16, 37, 40), (2, 8, 8, 8, 68, 32),
@@ -323,6 +337,8 @@ def cfg_key(entry: str) -> str:
     """The `Cfg<...>` template arguments and element type of a mangled K2
     instantiation, e.g. '4,24,2,128,256,4,128,1,3,0/bf16'."""
     import re
+    if "up_cell_kernel" in entry:
+        return "up:" + ",".join(re.findall(r"Li(-?\d+)E", entry))
     m = re.search(r"CfgI((?:Li-?\d+E)+)Lb(\d)E", entry)
     if not m:
         return entry[-40:]
@@ -548,6 +564,64 @@ def phase_k2(torch, dtypes):
                                      k2_inputs(torch, g, dtype, *shape))
             emit("k2_ragged", dtype=dname, shape=list(shape),
                  max_abs_err=err, plain_max_abs=scale)
+    rows["up_cell"] = up_cell_rows(torch, g)
+    return rows
+
+
+def up_cell_rows(torch, g):
+    """The decoder's up cell (float32) against its plain version at the
+    four cells, B = 60, timed beside what it replaced: K1 with cuDNN's two
+    ConvTs and relus, with the default algorithms and with
+    `cudnn.benchmark` on; `bound_ms` is the kernel's split-TF32 products
+    (3 x output-size flops at 495 TFLOP/s)."""
+    import torch.nn.functional as F
+    from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
+    from uncltmo_tpu_torch.ops.kernels.up_cell import (
+        fused_up_cell, pack_up_cell_weights, up_cell_plain, up_cell_plan)
+    rows = []
+    for name, c, c1, s in UP_SHAPES:
+        x2 = torch.relu(torch.randn((BATCH, c, s, s), generator=g,
+                                    device="cuda"))
+        x1 = torch.randn((BATCH, c, s, s), generator=g, device="cuda")
+        wts = [torch.randn(shape, generator=g, device="cuda") * std
+               for shape, std in (((4 * c, c1, 3, 3), (2 / (36 * c)) ** 0.5),
+                                  ((c1,), 0.1),
+                                  ((c1, c1, 3, 3), (2 / (9 * c1)) ** 0.5),
+                                  ((c1,), 0.1))]
+        out = fused_up_cell(x2, x1, *wts)
+        ref = up_cell_plain(x2, x1, *wts)
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if out.shape != ref.shape or not err <= UP_TOL * max(scale, 1e-6):
+            raise AssertionError(f"up cell {name}: max err {err} (plain max "
+                                 f"{scale})")
+        packed = pack_up_cell_weights(*wts)
+        ms = time_ms(lambda: fused_up_cell(x2, x1, *wts, packed=packed))
+        plain = time_ms(lambda: up_cell_plain(x2, x1, *wts))
+
+        def library():
+            mid = F.relu_(F.conv_transpose2d(fused_concat_skip(x2, x1),
+                                             wts[0], wts[1]))
+            F.relu_(F.conv_transpose2d(mid, wts[2], wts[3]))
+        lib = {}
+        for bench in (False, True):
+            torch.backends.cudnn.benchmark = bench
+            lib[bench] = time_ms(library)
+        torch.backends.cudnn.benchmark = False
+        flops = 2 * 9 * BATCH * (4 * c * c1 * (s + 2) ** 2
+                                 + c1 * c1 * (s + 4) ** 2)
+        plan = up_cell_plan(4 * c, c1, c1, x2.device)
+        row = dict(dtype="float32", cell=name, batch=BATCH,
+                   shape=list(x2.shape), plan=plan._asdict(),
+                   max_abs_err=err, plain_max_abs=scale, ms=ms,
+                   plain_ms=plain, library_ms=min(lib.values()),
+                   cudnn_default_ms=lib[False], cudnn_benchmark_ms=lib[True],
+                   flops=flops, tflops=flops / ms / 1e9,
+                   bound_ms=3 * flops / TF32_FLOPS * 1e3,
+                   bound_by="operations")
+        rows.append(row)
+        emit("k2_up_cell", **row)
+        del x2, x1, out, ref
     return rows
 
 
@@ -599,6 +673,7 @@ def phase_generator(torch, dtypes, seed):
     from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
     from uncltmo_tpu_torch.ops.kernels.concat_skip import concat_skip_plain
     from uncltmo_tpu_torch.ops.kernels.double_conv import double_conv3x3_plain
+    from uncltmo_tpu_torch.ops.kernels.up_cell import up_cell_plain
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     x = torch.rand((8, 1, 256, 256), generator=g, device="cuda")
     for dname, dtype in dtypes.items():
@@ -609,14 +684,18 @@ def phase_generator(torch, dtypes, seed):
             out, _ = model(x.to(dtype))
             # the same model with the blocks' kernels swapped for their
             # plain versions (a comparison harness, not a port option)
-            k1, k2 = blocks.fused_concat_skip, blocks.fused_double_conv3x3
+            saved = (blocks.fused_concat_skip, blocks.fused_double_conv3x3,
+                     blocks.fused_up_cell)
             blocks.fused_concat_skip = concat_skip_plain
             blocks.fused_double_conv3x3 = (
                 lambda *args, packed=None: double_conv3x3_plain(*args))
+            blocks.fused_up_cell = (
+                lambda *args, packed=None: up_cell_plain(*args))
             try:
                 ref, _ = model(x.to(dtype))
             finally:
-                blocks.fused_concat_skip, blocks.fused_double_conv3x3 = k1, k2
+                (blocks.fused_concat_skip, blocks.fused_double_conv3x3,
+                 blocks.fused_up_cell) = saved
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out.float()).all())
         emit("generator", dtype=dname, shape=list(out.shape),
@@ -676,15 +755,33 @@ def profile_call(torch, dname, fn, path: str = "image", top: int = 10) -> None:
 def reset_counts() -> None:
     from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
     from uncltmo_tpu_torch.ops.kernels.double_conv import fused_double_conv3x3
+    from uncltmo_tpu_torch.ops.kernels.up_cell import fused_up_cell
     fused_concat_skip.launches = 0
     fused_double_conv3x3.launches = 0
+    fused_up_cell.launches = 0
 
 
 def read_counts() -> dict:
     from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
     from uncltmo_tpu_torch.ops.kernels.double_conv import fused_double_conv3x3
+    from uncltmo_tpu_torch.ops.kernels.up_cell import fused_up_cell
     return {"fused_concat_skip": fused_concat_skip.launches,
-            "fused_double_conv3x3": fused_double_conv3x3.launches}
+            "fused_double_conv3x3": fused_double_conv3x3.launches,
+            "fused_up_cell": fused_up_cell.launches}
+
+
+def serve_launches(dname: str, forwards: int = 1) -> dict:
+    """Launches of `forwards` published generator forwards: K2 in `inc`
+    and `down0..2`; in float32 the up cell in the four decoder cells (K1's
+    concat folded into it), in bfloat16 K1 and torch's ConvTs."""
+    f32 = dname == "float32"
+    return {"fused_concat_skip": 0 if f32 else 4 * forwards,
+            "fused_double_conv3x3": 4 * forwards,
+            "fused_up_cell": 4 * forwards if f32 else 0}
+
+
+def launched(counts: dict) -> dict:
+    return {k: v > 0 for k, v in counts.items()}
 
 
 def png_diff(a: str, b: str) -> int:
@@ -821,8 +918,9 @@ def phase_video(torch, dtypes, seed, scenes):
                 shutil.copy(outs[1][0], os.path.join(
                     os.path.dirname(scenes), VIDEO_RENDER))
             diff = max(png_diff(a, b) for a, b in zip(outs[1], outs[2]))
-            # 4 launches a frame step and chunk; one chunk a 1080p plan
-            expected = {1: 4 * VIDEO_FRAMES * 2, 2: 4 * VIDEO_FRAMES}
+            # a forward a frame step and chunk; one chunk a 1080p plan
+            expected = {1: serve_launches(dname, VIDEO_FRAMES * 2),
+                        2: serve_launches(dname, VIDEO_FRAMES)}
             emit("video", dtype=dname, scenes=2, frames_per_scene=VIDEO_FRAMES,
                  pngs=[len(outs[1]), len(outs[2])],
                  png_shape=list(shapes[0]), finite=finite,
@@ -842,10 +940,10 @@ def phase_video(torch, dtypes, seed, scenes):
                     or any(sh != FRAME_HW + (3,) for sh in shapes)):
                 raise AssertionError(f"video {dname}: bad output")
             for sb in (1, 2):
-                if any(v != expected[sb] for v in counts[sb].values()):
+                if counts[sb] != expected[sb]:
                     raise AssertionError(
                         f"video {dname} scene_batch={sb}: launches "
-                        f"{counts[sb]}, expected {expected[sb]} each")
+                        f"{counts[sb]}, expected {expected[sb]}")
             if diff > 1:
                 raise AssertionError(f"video {dname}: scene_batch 2 vs 1 "
                                      f"{diff} levels apart")
@@ -926,9 +1024,10 @@ def phase_whole_image(torch, dtypes, seed):
             if (not finite or shape != FRAME_HW + (3,)
                     or tuple(out01.shape) != FRAME_HW + (3,)):
                 raise AssertionError(f"whole image {dname}: bad output")
-            if any(v != 4 for v in launches[dname].values()):
+            if launches[dname] != serve_launches(dname):
                 raise AssertionError(f"whole image {dname}: launches "
-                                     f"{launches[dname]}, expected 4 each")
+                                     f"{launches[dname]}, expected "
+                                     f"{serve_launches(dname)}")
             del runner, loaded, out01
             torch.cuda.empty_cache()
         pngs = {}
@@ -982,16 +1081,13 @@ def phase_end_to_end(torch, dtypes, seed, n_frames):
             runner.run_on_path(in_dir, os.path.join(tmp, "warm"), lam,
                                scale=1)
             torch.cuda.synchronize()
-            fused_concat_skip.launches = 0
-            fused_double_conv3x3.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             outs = runner.run_on_path(in_dir, os.path.join(tmp, dname), lam,
                                       scale=1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches[dname] = {
-                "fused_concat_skip": fused_concat_skip.launches,
-                "fused_double_conv3x3": fused_double_conv3x3.launches}
+            launches[dname] = read_counts()
             # device-only rate on preloaded frames (CUDA events)
             loaded = runner.load_image(os.path.join(in_dir, "frame0.hdr"),
                                        lam, scale=1)
@@ -1012,9 +1108,10 @@ def phase_end_to_end(torch, dtypes, seed, n_frames):
                     or any(s != FRAME_HW + (3,) for s in shapes)
                     or tuple(out01.shape) != FRAME_HW + (3,)):
                 raise AssertionError(f"end to end {dname}: bad output")
-            if min(launches[dname].values()) < 1:
-                raise AssertionError(f"end to end {dname}: a kernel was not "
-                                     f"launched: {launches[dname]}")
+            if launched(launches[dname]) != launched(serve_launches(dname)):
+                raise AssertionError(f"end to end {dname}: launches "
+                                     f"{launches[dname]}, expected those of "
+                                     f"{serve_launches(dname)}")
             del runner, loaded, out01
         # a small image: the card (kernels) against the CPU (plain
         # versions), float32, PNGs within 1 level
@@ -1199,19 +1296,24 @@ def phase_k2_autograd(torch):
 def train_counts() -> dict:
     from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
     from uncltmo_tpu_torch.ops.kernels.double_conv import fused_double_conv3x3
+    from uncltmo_tpu_torch.ops.kernels.up_cell import fused_up_cell
     return {"fused_concat_skip": fused_concat_skip.launches,
             "fused_concat_skip_backward": fused_concat_skip.backward_launches,
             "fused_double_conv3x3": fused_double_conv3x3.launches,
             "fused_double_conv3x3_backward_calls":
-                fused_double_conv3x3.backward_calls}
+                fused_double_conv3x3.backward_calls,
+            "fused_up_cell": fused_up_cell.launches,
+            "fused_up_cell_backward_calls": fused_up_cell.backward_calls}
 
 
 def reset_train_counts() -> None:
     from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
     from uncltmo_tpu_torch.ops.kernels.double_conv import fused_double_conv3x3
+    from uncltmo_tpu_torch.ops.kernels.up_cell import fused_up_cell
     reset_counts()
     fused_concat_skip.backward_launches = 0
     fused_double_conv3x3.backward_calls = 0
+    fused_up_cell.backward_calls = 0
 
 
 def synthetic_batch(rng, b: int, size: int) -> dict:
@@ -1276,20 +1378,25 @@ def snapshot(state) -> dict:
                   for n, p in state.gen.named_parameters()}}
 
 
-# one forward of either generator (a sample grid, B = 2): K1 in the four Up
-# blocks, K2 in `inc` and `down0..2`
-GRID_FORWARD = {"fused_concat_skip": 4, "fused_double_conv3x3": 4}
+# one float32 forward of either generator (a sample grid, B = 2): the up
+# cell in the four Up blocks, K2 in `inc` and `down0..2`
+GRID_FORWARD = serve_launches("float32")
 
 
-def train_per_step(video: bool) -> dict:
+def train_per_step(video: bool, bf16: bool = False) -> dict:
     """Kernel launches of one full training step (none in a D pre-train
-    step): K1 and K2 in each of the two generator forwards, K1's gradient
-    and K2's library gradient in the backward; twice over for the video
-    generator's two frame steps."""
+    step); twice over for the video generator's two frame steps.  Float32:
+    K2 and the up cell in each of the two generator forwards, K2's and the
+    up cell's library gradients in the backward, the latter rebuilding the
+    concat with K1 and returning dx2, dx1 through K1's gradient kernel.
+    bfloat16 (autocast): K2, and K1 with torch's ConvTs in the decoder."""
     n = 2 if video else 1
-    return {"fused_concat_skip": 8 * n, "fused_concat_skip_backward": 4 * n,
+    return {"fused_concat_skip": (8 if bf16 else 4) * n,
+            "fused_concat_skip_backward": 4 * n,
             "fused_double_conv3x3": 8 * n,
-            "fused_double_conv3x3_backward_calls": 4 * n}
+            "fused_double_conv3x3_backward_calls": 4 * n,
+            "fused_up_cell": 0 if bf16 else 8 * n,
+            "fused_up_cell_backward_calls": 0 if bf16 else 4 * n}
 
 
 def phase_train(torch, seed):
@@ -1555,13 +1662,15 @@ class LaunchDtypes:
     def __enter__(self):
         from uncltmo_tpu_torch.ops.kernels import _concat_skip_triton as k1
         from uncltmo_tpu_torch.ops.kernels import double_conv as k2
+        from uncltmo_tpu_torch.ops.kernels import up_cell as up
         self._saved = []
         for mod, name, key in ((k1, "launch", "fused_concat_skip"),
                                (k1, "launch_backward",
                                 "fused_concat_skip_backward"),
                                (k2, "_launch", "fused_double_conv3x3"),
                                (k2, "double_conv3x3_backward",
-                                "fused_double_conv3x3_backward_calls")):
+                                "fused_double_conv3x3_backward_calls"),
+                               (up, "_launch", "fused_up_cell")):
             fn = getattr(mod, name)
             self._saved.append((mod, name, fn))
 
@@ -1629,7 +1738,7 @@ def phase_train_bf16(torch, seed, f32_ms):
         ref_logs = {k: float(v) for k, v in ref_logs.items()}
         del ref_step, ref_state
         torch.cuda.empty_cache()
-        per_step = train_per_step(video)
+        per_step = train_per_step(video, bf16=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_train_counts()
@@ -1696,31 +1805,36 @@ def phase_train_bf16(torch, seed, f32_ms):
 
 
 # one forward at the published width of each other generator option:
-# (name, UNetTMO keyword arguments, K2 and K1 launches it must make)
+# (name, UNetTMO keyword arguments, K2, K1 and up-cell launches it must
+# make: the up cell wherever the decoder cell is the published one)
 OPTION_FORWARDS = [
-    ("batch_norm", dict(unet_norm="batch_norm"), 0, 4),
-    ("instance_norm", dict(unet_norm="instance_norm"), 0, 4),
+    ("batch_norm", dict(unet_norm="batch_norm"), 0, 4, 0),
+    ("instance_norm", dict(unet_norm="instance_norm"), 0, 4, 0),
     ("leakyrelu_square", dict(activation="leakyrelu", con_operator="square"),
-     0, 0),
-    ("no_doubleConvTranspose", dict(double_conv_transpose=False), 0, 4),
+     0, 0, 0),
+    ("no_doubleConvTranspose", dict(double_conv_transpose=False), 0, 4, 0),
     ("no_dct_zeros", dict(double_conv_transpose=False, padding_mode="zeros"),
-     0, 4),
-    ("up_mode", dict(up_mode=True), 4, 4),
-    ("up_mode_no_dct", dict(up_mode=True, double_conv_transpose=False), 0, 4),
-    ("bilinear", dict(bilinear=True), 4, 4),
-    ("original_unet", dict(con_operator="original_unet"), 4, 0),
-    ("square", dict(con_operator="square"), 4, 0),
-    ("square_root", dict(con_operator="square_root"), 4, 0),
-    ("gamma", dict(con_operator="gamma"), 4, 0),
+     0, 4, 0),
+    ("up_mode", dict(up_mode=True), 4, 0, 4),
+    ("up_mode_no_dct", dict(up_mode=True, double_conv_transpose=False), 0, 4,
+     0),
+    ("bilinear", dict(bilinear=True), 4, 0, 4),
+    ("original_unet", dict(con_operator="original_unet"), 4, 0, 0),
+    ("square", dict(con_operator="square"), 4, 0, 0),
+    ("square_root", dict(con_operator="square_root"), 4, 0, 0),
+    ("gamma", dict(con_operator="gamma"), 4, 0, 0),
     ("manual_d", dict(con_operator="square_and_square_root_manual_d",
-                      n_channels=2), 4, 0),
+                      n_channels=2), 4, 0, 0),
 ]
 # a batch-norm generator: K1 in the decoder's four concats (two forwards
-# and one backward a step), no K2 (every encoder cell has a norm)
+# and one backward a step), no K2 (every encoder cell has a norm) and no
+# up cell
 BN_PER_STEP = {"fused_concat_skip": 8, "fused_concat_skip_backward": 4,
                "fused_double_conv3x3": 0,
-               "fused_double_conv3x3_backward_calls": 0}
-BN_SERVE_LAUNCHES = {"fused_concat_skip": 4, "fused_double_conv3x3": 0}
+               "fused_double_conv3x3_backward_calls": 0,
+               "fused_up_cell": 0, "fused_up_cell_backward_calls": 0}
+BN_SERVE_LAUNCHES = {"fused_concat_skip": 4, "fused_double_conv3x3": 0,
+                     "fused_up_cell": 0}
 
 
 def record_forward(engine) -> list:
@@ -1747,8 +1861,8 @@ def phase_options(torch, seed):
     `InferenceRunner`, its chunk's outputs on `BN_FRAME_TILES` tiles held
     against the CPU's on the same tiles, and on a small frame by the
     card's and the CPU's, PNGs within one level.  Then one forward at the
-    published width of each other option, with the launches of K1 and K2
-    it makes.  Returns the launch counts (all float32)."""
+    published width of each other option, with the launches of K1, K2 and
+    the up cell it makes.  Returns the launch counts (all float32)."""
     import numpy as np
     from uncltmo_tpu_torch.config import get_model_params
     from uncltmo_tpu_torch.inference.runner import InferenceRunner
@@ -1898,7 +2012,7 @@ def phase_options(torch, seed):
 
     # -- one forward of each other option at the published width
     rows = []
-    for name, kw, k2_want, k1_want in OPTION_FORWARDS:
+    for name, kw, k2_want, k1_want, up_want in OPTION_FORWARDS:
         model = seeded_init_(UNetTMO(**kw), seed).cuda()
         x = torch.rand(2, kw.get("n_channels", 1), 256, 256,
                        generator=torch.Generator().manual_seed(seed)).cuda()
@@ -1909,14 +2023,16 @@ def phase_options(torch, seed):
         counts = read_counts()
         add(counts)
         finite = bool(torch.isfinite(out).all())
-        want = {"fused_concat_skip": k1_want, "fused_double_conv3x3": k2_want}
+        want = {"fused_concat_skip": k1_want, "fused_double_conv3x3": k2_want,
+                "fused_up_cell": up_want}
         if counts != want or not finite or tuple(out.shape) != (2, 1, 256,
                                                                 256):
             raise AssertionError(f"options {name}: launches {counts} "
                                  f"(expected {want}), finite {finite}")
         rows.append({"option": name, "k1_launches": counts[
             "fused_concat_skip"], "k2_launches": counts[
-            "fused_double_conv3x3"]})
+            "fused_double_conv3x3"], "up_cell_launches": counts[
+            "fused_up_cell"]})
         del model, x, out
     emit("options", part="forwards", batch=2, size=256, filters=32,
          per_forward=rows)
@@ -2613,11 +2729,11 @@ def phase_data_parallel(torch, seed) -> dict:
     launches = {"float32": {}, "bfloat16": {}}
     for r in ranks:
         for (video, _, mode), res in zip(DP_PLAN, r["results"]):
-            if res["launches"] != train_per_step(video):
+            if res["launches"] != train_per_step(video, mode == "bf16"):
                 raise AssertionError(
                     f"data_parallel: rank on {r['device']} launched "
                     f"{res['launches']} in a {mode} step, expected "
-                    f"{train_per_step(video)}")
+                    f"{train_per_step(video, mode == 'bf16')}")
             by = launches["bfloat16" if mode == "bf16" else "float32"]
             for k, v in res["launches"].items():
                 by[k] = by.get(k, 0) + v
@@ -2692,7 +2808,8 @@ def phase_data_parallel(torch, seed) -> dict:
             for t in tr + [trainer_ref]):
         bad.append("world, step or resumed iteration")
     if [t["assessment_pngs"] for t in tr] != [1] + [None] * (DP_WORLD - 1) \
-            or not all(tr[0]["assessment_launches"].values()) \
+            or launched(tr[0]["assessment_launches"]) != launched(
+                serve_launches("float32")) \
             or any(any(t["assessment_launches"].values()) for t in tr[1:]):
         bad.append("the final assessment is not rank 0's alone")
     if (len({v[0] for v in logged.values()}) != 1
@@ -2770,10 +2887,10 @@ def timed_eval(torch, tester, state_dict, out_dir: str, epoch_iter: int):
     return metrics, ms, clock.calls, devices
 
 
-# the Tester's launches of each forward kernel: 4 a frame step; an image
-# render is one step (image G) or four (the video G replicates the frame
-# 4x), a scene one step a frame
-TESTER_LAUNCHES = {"image": 4 * 2, "video": 4 * (VIDEO_FRAMES + 4 * 2)}
+# the Tester's generator forwards (float32, `serve_launches` each): an
+# image render is one frame step (image G) or four (the video G replicates
+# the frame 4x), a scene one step a frame
+TESTER_FORWARDS = {"image": 2, "video": VIDEO_FRAMES + 4 * 2}
 LAMBDA_RTOL = 1e-4            # card vs CPU fit of the same gray
 TMQI_TOL = 1e-4               # Q of one render, card vs CPU
 FLOW_TOL_PX = 0.25            # Horn-Schunck on uint8 renders, card vs CPU
@@ -2862,10 +2979,10 @@ def phase_tester(torch, seed, scenes, scene_lams):
                 torch, tester, gen.state_dict(), os.path.join(tmp, path),
                 1)
             counts = read_counts()
-            want = TESTER_LAUNCHES[path]
-            if any(v != want for v in counts.values()):
+            want = serve_launches("float32", TESTER_FORWARDS[path])
+            if counts != want:
                 raise AssertionError(f"tester {path}: launches {counts}, "
-                                     f"expected {want} each")
+                                     f"expected {want}")
             # each render's TMQI on the card against the CPU's: Q, S, N
             # and the five s_l.  Q and S are NaN where an s_l is
             # negative (an untrained G can anti-correlate with its
@@ -2952,7 +3069,7 @@ def phase_tester(torch, seed, scenes, scene_lams):
 ASSESS_IMAGES = 16
 ASSESS_HW = (540, 960)
 ASSESS_SCALE = 2
-ASSESS_LAUNCHES = 4           # K1 and K2 a render: one forward of its tiles
+ASSESS_FORWARDS = 1           # a render: one forward of its tiles
 VIDEO_RENDER = "video_render_1080p.png"   # written by the video phase
 FID_BATCH = 20                # the FID loader's batch
 EXTRACTOR_TOL = 1e-4          # card vs CPU activations, of their max-abs
@@ -3048,8 +3165,8 @@ def phase_assessment(torch, seed, video_png: str) -> dict:
     16 synthetic 540x960 HDR inputs (one a ZIP / HALF `.exr`) rendered at
     1/2 size, and the FID of the renders against 16 real PNGs with seeded
     Inception weights, merged into `fid_res_path`.  Held: 16 PNGs, 4
-    launches of K1 and K2 a render, the FID finite, >= 0 and stored under
-    the model's name (the tail catches and prints a failure, so a missing
+    launches of K2 and the up cell a render, the FID finite, >= 0 and
+    stored under the model's name (the tail catches and prints a failure, so a missing
     entry fails here); the FID recomputed from the card's activations,
     which match the CPU extractor's within EXTRACTOR_TOL of their
     max-abs, and the FID of the CPU's activations within FID_RTOL.
@@ -3137,9 +3254,9 @@ def phase_assessment(torch, seed, video_png: str) -> dict:
         counts = read_counts()
         shapes = {read_png(p).shape for p in outs}
         want_hw = tuple(n // ASSESS_SCALE for n in ASSESS_HW)
-        want = ASSESS_LAUNCHES * ASSESS_IMAGES
+        want = serve_launches("float32", ASSESS_FORWARDS * ASSESS_IMAGES)
         if (len(outs) != ASSESS_IMAGES or shapes != {want_hw + (3,)}
-                or any(v != want for v in counts.values())):
+                or counts != want):
             raise AssertionError(f"assessment: {len(outs)} PNGs of {shapes}"
                                  f", launches {counts} (expected {want})")
         res_path = os.path.join(opt.output_dir, opt.fid_res_path + ".npy")
@@ -3501,8 +3618,8 @@ def phase_exr(torch, seed, out_dir: str, proc, hdr_files_fps: float):
     float32) over the 1080p PIZ HALF, PXR24 FLOAT, B44A HALF, DWAA HALF,
     DWAB HALF, tiled PIZ HALF and luminance/chroma ZIP files through
     `run_on_path`, and over their `.npy` twins: PNGs within one level of
-    the twins', K1 / K2 launched, files fps beside the end_to_end phase's
-    `.hdr` files fps.  Then the host side's records: cv2's OpenEXR, every
+    the twins', K2 / up cell launched, files fps beside the end_to_end
+    phase's `.hdr` files fps.  Then the host side's records: cv2's OpenEXR, every
     read against cv2 (or the encoders' input) and its ms; a
     luminance/chroma read that is not cv2's bit for bit fails the phase.
     Returns the EXR run's launch counts."""
@@ -3546,8 +3663,9 @@ def phase_exr(torch, seed, out_dir: str, proc, hdr_files_fps: float):
          waited_for_host_s=waited_s)
     if len(outs["exr"]) != len(names) or max(diffs.values()) > 1:
         raise AssertionError(f"exr: PNGs {diffs} against the .npy twins")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"exr: a kernel was not launched: {launches}")
+    if launched(launches) != launched(serve_launches("float32")):
+        raise AssertionError(f"exr: launches {launches}, expected those of "
+                             f"{serve_launches('float32')}")
     if proc.wait(timeout=EXR_HOST_TIMEOUT_S) != 0:
         raise AssertionError("the exr host process failed: " + open(
             os.path.join(out_dir, "host.json")).read()[-2000:])
@@ -3654,6 +3772,20 @@ def run_phases(torch, args, kind, smi, dtypes, exr_dir, exr_proc) -> int:
         launches["bfloat16"][k] += train16[k]
 
     kernels = []
+    up = k2["up_cell"]
+    kernels.append({
+        "name": "fused_up_cell/float32", "route": "cuda",
+        "source": "uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu",
+        "replaces": "uncltmo_tpu/ops/pallas_kernels.py:183 and the "
+                    "DoubleConvT's two ConvTs",
+        "launches": launches["float32"]["fused_up_cell"],
+        "max_abs_err": max(x["max_abs_err"] for x in up),
+        "ms": sum(x["ms"] for x in up),
+        "plain_ms": sum(x["plain_ms"] for x in up),
+        "bound_ms": sum(x["bound_ms"] for x in up), "bound_by": "operations",
+        "library_ms": sum(x["library_ms"] for x in up),
+        "tflops": sum(x["flops"] for x in up) / sum(x["ms"] for x in up)
+        / 1e9})
     for name, route, source, replaces, rows in (
             ("fused_concat_skip", "triton",
              "uncltmo_tpu_torch/ops/kernels/_concat_skip_triton.py",

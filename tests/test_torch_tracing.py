@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from uncltmo_tpu_torch.inference.engine import TileEngine
-from uncltmo_tpu_torch.models.blocks import DoubleConv
+from uncltmo_tpu_torch.models.blocks import DoubleConv, DoubleConvT
 from uncltmo_tpu_torch.models.discriminator import SimpleDiscriminator
 from uncltmo_tpu_torch.models.unet import UNetTMO, bottleneck_grid
 from uncltmo_tpu_torch.training import train_step as tstep
@@ -46,7 +46,7 @@ def _names(node):
 
 
 PROGRAM_SPANS = _names(STEP_TREE) | set(ENGINE) | {
-    "uncltmo.k2.pack", "uncltmo.serve.preprocess",
+    "uncltmo.k2.pack", "uncltmo.up.pack", "uncltmo.serve.preprocess",
     "uncltmo.serve.postprocess"}
 
 
@@ -179,6 +179,20 @@ def test_k2_packs_under_its_span_on_a_miss_only(tmp_path):
         cell.packed_weights()
     for d in ("a", "b"):
         assert _counts(_spans(str(tmp_path / d))) == {"uncltmo.k2.pack": 1}
+
+
+def test_up_cell_packs_under_its_span_on_a_miss_only(tmp_path):
+    cell = DoubleConvT(128, 32)
+    with profiling.traced_to(str(tmp_path / "a")):
+        first = cell.packed_weights()
+        assert cell.packed_weights() is first          # a hit
+    with torch.no_grad():
+        cell.conv.bias.add_(1.0)                       # a new version
+    with profiling.traced_to(str(tmp_path / "b")):
+        assert cell.packed_weights() is not first
+        cell.packed_weights()
+    for d in ("a", "b"):
+        assert _counts(_spans(str(tmp_path / d))) == {"uncltmo.up.pack": 1}
 
 
 def _benchmark_span_names():

@@ -12,16 +12,23 @@ Where the hand-written kernels run, and nowhere else:
   no padding, no post-pad, no norm, relu.  That is every encoder cell of
   the published generator, and of any generator with
   `g_doubleConvTranspose` or `up_mode`, no norm and relu.
+* The up cell (`ops/kernels/up_cell.py`) computes K1's concat and the two
+  ConvTranspose2d(k=3) + relu of a `DoubleConvT` in one float32 launch, so
+  it runs the decoder cells of every float32 generator with
+  `square_and_square_root`, doubleConvTranspose, relu, no norm and skip
+  channels a multiple of 32 (the published one).
 * K1 (`ops/kernels/concat_skip.py`) computes the `square_and_square_root`
-  skip concat and runs it for every generator that has that operator.
+  skip concat and runs it for every other generator that has that
+  operator, and for a bfloat16 one (under autocast or with bfloat16
+  weights), whose decoder keeps torch's layers.
 
 Every other cell -- padded convs, batch or instance norm, leaky ReLU, the
 other five skip operators -- is a different function from the TPU kernels
 and runs torch's own convolutions, norms and activations, as the JAX model
-runs all of its cells through XLA.  The decoder's `ConvTranspose2d(k=3)`
-and the 2x2 upsample `ConvTranspose2d(k=2, s=2)` are torch's layers on the
-reference weights (the JAX package stores the flipped kernel of a full-pad
-conv; `utils/convert.py` undoes that).
+runs all of its cells through XLA.  The 2x2 upsample `ConvTranspose2d(k=2,
+s=2)`, and the decoder's `ConvTranspose2d(k=3)` outside the up cell, are
+torch's layers on the reference weights (the JAX package stores the
+flipped kernel of a full-pad conv; `utils/convert.py` undoes that).
 
 Norm layers take the mode from the caller: `train=True` normalises by the
 batch and updates batch norm's running statistics, `train=False` uses
@@ -40,6 +47,8 @@ from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights, weights_key)
+from uncltmo_tpu_torch.ops.kernels.up_cell import (
+    channels_ok, fused_up_cell, pack_up_cell_weights)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype, no_autocast
 from uncltmo_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
 from uncltmo_tpu_torch.utils import profiling
@@ -340,7 +349,9 @@ class Down(nn.Module):
 
 class DoubleConvT(nn.Module):
     """(ConvTranspose2d(k=3) => [norm] => act) * 2 (reference
-    `unet_parts.py:144-193`); grows the spatial size by 4."""
+    `unet_parts.py:144-193`); grows the spatial size by 4.  Without norm
+    and with relu, the cell behind a `square_and_square_root` concat is one
+    launch of the up cell on a float32 CUDA tensor (`Up.forward`)."""
 
     def __init__(self, in_ch: int, out_ch: int, unet_norm: str = "none",
                  activation: str = "relu"):
@@ -351,6 +362,22 @@ class DoubleConvT(nn.Module):
         self.norm = make_norm(unet_norm, out_ch)
         self.norm1 = make_norm(unet_norm, out_ch)
         self.activation = activation
+        self.fused = unet_norm == "none" and activation == "relu"
+        self._packed = None        # (weights_key, PackedUpCell)
+
+    def _weights(self):
+        return (self.conv.weight, self.conv.bias, self.conv1.weight,
+                self.conv1.bias)
+
+    def packed_weights(self):
+        """The up cell's weight layout, packed once and again only after a
+        reload, a cast, a move or an in-place update of a parameter; a
+        packing opens the span `uncltmo.up.pack`."""
+        key = weights_key(*self._weights())
+        if self._packed is None or self._packed[0] != key:
+            with profiling.trace("uncltmo.up.pack"):
+                self._packed = (key, pack_up_cell_weights(*self._weights()))
+        return self._packed[1]
 
     def forward(self, x, train: bool = False):
         act = activation_fn(self.activation)
@@ -456,6 +483,10 @@ class Up(nn.Module):
             self.conv = DoubleConv(cat_ch, out_ch, unet_norm, activation,
                                    pad=pad, post_pad_replicate=up_mode,
                                    padding_mode=padding_mode)
+        # the concat and the DoubleConvT as one kernel (float32 on CUDA)
+        self.fused_cell = (double_conv_transpose and self.conv.fused
+                           and con_operator == params.SQUARE_AND_SQUARE_ROOT
+                           and skip_ch == up_ch and channels_ok(skip_ch))
 
     def forward(self, x1, x2, d_weight_mul=None, train: bool = False):
         x1 = zero_insert_upsample(x1) if self.up_mode else self.up(x1)
@@ -463,6 +494,11 @@ class Up(nn.Module):
         diff_x = x2.shape[3] - x1.shape[3]
         if diff_y or diff_x:
             x1 = _pad_or_crop(x1, diff_y, diff_x, self.padding_mode)
+        if (self.fused_cell and x2.is_cuda and autocast_dtype("cuda") is None
+                and x2.dtype == x1.dtype == self.conv.conv.weight.dtype
+                == torch.float32):
+            return fused_up_cell(x2, x1, *self.conv._weights(),
+                                 packed=self.conv.packed_weights())
         return self.conv(concat_skip(x2, x1, self.con_operator,
                                      d_weight_mul), train)
 
