@@ -20,9 +20,9 @@ version on the card.
 One JSON line per phase:
 
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: nvcc of the CUDA kernels for sm_90a (K2: one library per
-    element type, both started at the top of `main`, before torch is
-    imported; the float32 one also holds the decoder's up cell), Triton's
+ 2. build: nvcc of the CUDA kernels for sm_90a (one library per source of
+    `csrc/`: K2 in float32, K2 in bfloat16 and the decoder's up cell, all
+    started at the top of `main`, before torch is imported), Triton's
     first compiles meanwhile; per K2 and up-cell instantiation ptxas'
     registers and spills
     and its SASS inventory (`cuobjdump -sass`: HGMMA, HMMA, UBLKCP,
@@ -317,19 +317,23 @@ SASS_OPS = ("HGMMA", "HMMA", "UBLKCP", "UTMALDG")
 K2_BUILD: dict = {}            # Cfg<...> of an instantiation -> its record
 
 
-# K2's two libraries (`double_conv.library_defines` of float32, bfloat16),
-# compiled from the top of `main` on, before torch is imported, so that
-# nvcc overlaps the start-up; `phase_build` waits for them
-K2_DEFINES = (("-DUNCLTMO_K2_ELEM=0",), ("-DUNCLTMO_K2_ELEM=1",))
+# The CUDA libraries, one a source of `csrc/`, compiled from the top of
+# `main` on, before torch is imported, so that nvcc overlaps the start-up;
+# `phase_build` waits for them
 PREBUILD: list = []
+
+
+def cuda_sources() -> list:
+    from uncltmo_tpu_torch.ops.kernels import build
+    return sorted(n for n in os.listdir(build.CSRC) if n.endswith(".cu"))
 
 
 def start_prebuild() -> None:
     from concurrent.futures import ThreadPoolExecutor
     from uncltmo_tpu_torch.ops.kernels import build
-    pool = ThreadPoolExecutor(len(K2_DEFINES))
-    PREBUILD.extend(pool.submit(build.compile_source, "double_conv3x3.cu", d)
-                    for d in K2_DEFINES)
+    sources = cuda_sources()
+    pool = ThreadPoolExecutor(len(sources))
+    PREBUILD.extend(pool.submit(build.compile_source, s) for s in sources)
     pool.shutdown(wait=False)
 
 
@@ -348,34 +352,32 @@ def cfg_key(entry: str) -> str:
 
 
 def phase_build():
-    """nvcc of K2, then per instantiation ptxas' registers and spills and
-    the SASS inventory (`cuobjdump -sass`): every K2 kernel must issue
-    HGMMA, none HMMA, and its weights must move by bulk copies."""
-    import torch
+    """nvcc of the CUDA kernels, then per instantiation ptxas' registers and
+    spills and the SASS inventory (`cuobjdump -sass`): every kernel must
+    issue HGMMA, none HMMA, and its weights must move by bulk copies."""
     from uncltmo_tpu_torch.ops.kernels import build
-    from uncltmo_tpu_torch.ops.kernels.double_conv import library_defines
     t0 = time.perf_counter()
-    # one library per element type, both nvcc at once (started in `main`)
-    defines = [library_defines(d) for d in (torch.float32, torch.bfloat16)]
-    assert tuple(defines) == K2_DEFINES
+    # one library per source, every nvcc at once (started in `main`)
+    sources = cuda_sources()
     for f in PREBUILD:
         f.result()
-    for d in defines:
-        build.load_library("double_conv3x3.cu", d)
-    paths = [build.library_path("double_conv3x3.cu", d) for d in defines]
+    for source in sources:
+        build.load_library(source)
+    paths = [build.library_path(source) for source in sources]
     infos = [build.build_info[os.path.basename(p)] for p in paths]
     kernels: dict = {}
-    entry = ""
-    for ln in "\n".join(i["log"] for i in infos).splitlines():
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if "'" in ln else ln.strip()
-            kernels[cfg_key(entry)] = {"ptxas": []}
-        elif entry and ("registers" in ln or "spill" in ln):
-            kernels[cfg_key(entry)]["ptxas"].append(
-                ln.replace("ptxas info    :", "").strip())
-        elif "Performance Loss" in ln:
-            kernels.setdefault(cfg_key(ln), {"ptxas": []})[
-                "performance_loss"] = ln.strip()[:200]
+    for log in (i["log"] for i in infos):
+        entry = ""              # a library's lines before its first entry
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+                kernels[cfg_key(entry)] = {"ptxas": []}
+            elif entry and ("registers" in ln or "spill" in ln):
+                kernels[cfg_key(entry)]["ptxas"].append(
+                    ln.replace("ptxas info    :", "").strip())
+            elif "Performance Loss" in ln:
+                kernels.setdefault(cfg_key(ln), {"ptxas": []})[
+                    "performance_loss"] = ln.strip()[:200]
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = "".join(subprocess.run([cuobjdump, "-sass", p],
                                   capture_output=True, text=True,
@@ -389,10 +391,10 @@ def phase_build():
            or not (v["sass"].get("UBLKCP") or v["sass"].get("UTMALDG"))}
     K2_BUILD.update(kernels)
     emit("build", kernel="fused_double_conv3x3", route="cuda",
-         nvcc_seconds=[i["seconds"] for i in infos],
+         sources=sources, nvcc_seconds=[i["seconds"] for i in infos],
          load_seconds=time.perf_counter() - t0, instantiations=kernels)
     if bad or not kernels:
-        raise AssertionError(f"K2 SASS: kernels without HGMMA, with HMMA "
+        raise AssertionError(f"SASS: kernels without HGMMA, with HMMA "
                              f"or without bulk copies: {bad}")
 
 

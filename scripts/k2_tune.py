@@ -6,8 +6,10 @@
         base= 'ch128=@UNCLTMO_K2_CFG256=4,24,2,128,256,4,128,1,3' \\
         'other=path/to/copy.cu::-DSOME_FLAG'
 
-Each argument is `name=[source::]nvcc flags`; the source defaults to
-`uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu`.  A flag written
+Each argument is `name=[source::]nvcc flags`; the source defaults to the
+one of `--dtype` in `uncltmo_tpu_torch/ops/kernels/csrc/`
+(`double_conv3x3_bf16.cu` or `double_conv3x3.cu`; a copy elsewhere finds
+the headers it includes there too).  A flag written
 `@MACRO=a,b,c` becomes a `#define MACRO a, b, c` in a header that is
 force-included (nvcc splits `-D` values at commas); a shape is TH, TW,
 NWG, CH, C2P, CL, CINC, TG, NST (see the source's `Cfg`), the float32 ones
@@ -83,7 +85,9 @@ def main() -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT, exist_ok=True)
-    default_src = os.path.join(build.CSRC, "double_conv3x3.cu")
+    default_src = os.path.join(build.CSRC, {
+        "bfloat16": "double_conv3x3_bf16.cu",
+        "float32": "double_conv3x3.cu"}[args.dtype])
     procs = []
     for spec in args.variants:
         name, _, rest = spec.partition("=")
@@ -98,10 +102,8 @@ def main() -> int:
                     macro, _, value = flag[1:].partition("=")
                     f.write(f"#define {macro} {value}\n")
         plain = [flag for flag in flags.split() if not flag.startswith("@")]
-        # the selected element type only (`UNCLTMO_K2_ELEM`)
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain,
-               f"-DUNCLTMO_K2_ELEM={int(args.dtype == 'bfloat16')}",
-               "-include", header, "-o", lib, src]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain, "-I",
+               build.CSRC, "-include", header, "-o", lib, src]
         procs.append((name, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -121,13 +123,7 @@ def main() -> int:
         hgmma = [blk.count(" HGMMA.") for blk in sass.split("Function : ")[1:]]
         print(json.dumps({"variant": name, "build": "ok", "registers": regs,
                           "spills": spills, "hgmma": hgmma}), flush=True)
-        handle = ctypes.CDLL(lib)
-        handle.uncltmo_double_conv3x3.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        handle.uncltmo_double_conv3x3.restype = ctypes.c_int
-        handle.uncltmo_double_conv3x3_plan.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
-        libs.append((name, handle))
+        libs.append((name, ctypes.CDLL(lib)))
 
     dtype = getattr(torch, args.dtype)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -153,15 +149,14 @@ def main() -> int:
         scale = ref.abs().max().item()
         y = torch.empty((batch, c2, h - 4, w - 4), dtype=dtype,
                         device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
         flops = 2 * 9 * batch * (cin * c1 * (h - 2) * (w - 2)
                                  + c1 * c2 * (h - 4) * (w - 4))
-        code = 0 if dtype == torch.float32 else 1
         key = f"{cell}/B{batch}" + (f"/{h}x{w}" if h != w else "")
         packs = {}
         for name, handle in libs:
             plan = (ctypes.c_int * len(Plan._fields))()
-            handle.uncltmo_double_conv3x3_plan(cin, c1, c2, code, plan)
+            build.call(handle, "uncltmo_double_conv3x3_plan", cin, c1, c2,
+                       plan)
             plan = Plan(*plan)
             if plan.ch1 == 0:      # a source from before conv1's blocks
                 plan = plan._replace(ch1=plan.ch)
@@ -178,14 +173,9 @@ def main() -> int:
             else:
                 pk = packs[name]
 
-                def run(handle=handle, pk=pk, name=name):
-                    err = handle.uncltmo_double_conv3x3(
-                        x.data_ptr(), pk.w1.data_ptr(), pk.b1.data_ptr(),
-                        pk.w2.data_ptr(), pk.b2.data_ptr(), y.data_ptr(),
-                        batch, cin, h, w, c1, c2, code, stream)
-                    if err:
-                        raise RuntimeError(f"{name} {key}: launch error "
-                                           f"{err}")
+                def run(handle=handle, pk=pk):
+                    build.call(handle, "uncltmo_double_conv3x3", x, *pk, y,
+                               batch, cin, h, w, c1, c2, on=x)
                 y.fill_(float("nan"))
                 try:
                     run()

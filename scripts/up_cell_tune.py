@@ -16,8 +16,8 @@ algorithms, then with `torch.backends.cudnn.benchmark` on (TF32 off in
 both).
 
 Each variant argument is `name=[source::]nvcc flags`; the source defaults
-to `uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu`, built for
-float32 only.  A flag written `@MACRO=a,b,c` becomes a `#define MACRO a,
+to `uncltmo_tpu_torch/ops/kernels/csrc/up_cell.cu` (a copy elsewhere finds
+the headers it includes there too).  A flag written `@MACRO=a,b,c` becomes a `#define MACRO a,
 b, c` in a force-included header (nvcc splits `-D` values at commas); the
 cells' shapes are the `UNCLTMO_UP_CFG*` macros of the source (NST, then
 per phase TH, TW, MW, N, J, then SQ).  Every
@@ -89,7 +89,7 @@ def cell_inputs(torch, g, b, c, c1, h, w):
 def build_variants(variants):
     from uncltmo_tpu_torch.ops.kernels import build
     os.makedirs(OUT, exist_ok=True)
-    default_src = os.path.join(build.CSRC, "double_conv3x3.cu")
+    default_src = os.path.join(build.CSRC, "up_cell.cu")
     procs = []
     for spec in variants:
         name, _, rest = spec.partition("=")
@@ -104,8 +104,8 @@ def build_variants(variants):
                     macro, _, value = flag[1:].partition("=")
                     f.write(f"#define {macro} {value}\n")
         plain = [flag for flag in flags.split() if not flag.startswith("@")]
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain,
-               "-DUNCLTMO_K2_ELEM=0", "-include", header, "-o", lib, src]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *plain, "-I",
+               build.CSRC, "-include", header, "-o", lib, src]
         procs.append((name, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -120,9 +120,7 @@ def build_variants(variants):
         regs, fn = {}, ""
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
-                mangled = ln.split("'")[1]
-                fn = ("up_cell" if "up_cell_kernel" in mangled else "k2")
-                fn += "@" + str(len(regs))
+                fn = "up_cell@" + str(len(regs))
             elif fn and ("spill" in ln or ("Used" in ln and "registers"
                                            in ln)):
                 regs.setdefault(fn, []).append(ln.split(":")[-1].strip())

@@ -2,10 +2,11 @@
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_double_conv_tiling.py -q
 
-`csrc/double_conv3x3.cu` cannot run on the CPU, so its index arithmetic is
-rebuilt here step by step in plain PyTorch (`tiled_model`): tiles with a
-halo, staged as [position][channel] with one pitch, each tap a shift of
-the flattened position, positions in 64-row wgmma tiles, conv1 in chunks
+K2's CUDA sources (`csrc/double_conv3x3*.cu`) cannot run on the CPU, so
+their index arithmetic is rebuilt here step by step in plain PyTorch
+(`tiled_model`): tiles with a halo, staged as [position][channel] with one
+pitch, each tap a shift of the flattened position, positions in 64-row
+wgmma tiles, conv1 in chunks
 of the intermediate channels split over the CTAs of a cluster (rank r
 computes channels [r * ch / cl, (r + 1) * ch / cl) of each chunk and every
 CTA receives the whole chunk), rounded to the input dtype, folded into
@@ -21,11 +22,12 @@ intermediate moves an output by a bf16 step).
 import pytest
 import torch
 
-from uncltmo_tpu_torch.models.blocks import DoubleConv
+from uncltmo_tpu_torch.models.blocks import DoubleConv, DoubleConvT
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
-    _CFGS, Plan, b_image_index, default_plan, double_conv3x3_plain,
-    pack_double_conv_weights, packed_sizes, padded_c2, tf32_round,
-    tf32_split, weights_key)
+    _CFGS, Plan, default_plan, double_conv3x3_plain, pack_double_conv_weights,
+    packed_sizes, padded_c2)
+from uncltmo_tpu_torch.ops.kernels.packing import (
+    b_image_index, tf32_round, tf32_split, weights_key)
 
 SMEM_LIMIT = 232448            # bytes a block may use on an H100
 SCR_LD = 68                    # the epilogue scratch's row, floats
@@ -511,24 +513,39 @@ def test_packed_weights_carry_no_graph():
     assert not any(t.requires_grad for t in pk)
 
 
-def _cell():
+def _cell(kind="k2"):
+    """A cell whose kernel reads packed weights: K2's `DoubleConv`, or the
+    up cell's `DoubleConvT` (behind a concat of 4 x 32 skip channels)."""
     torch.manual_seed(0)
-    return DoubleConv(4, 8)
+    return DoubleConv(4, 8) if kind == "k2" else DoubleConvT(128, 32)
 
 
 def test_cache_packs_once_for_unchanged_weights():
+    for kind in ("k2", "up_cell"):
+        cell = _cell(kind)
+        first = cell.packed_weights()
+        assert cell.packed_weights() is first
+        fresh = type(cell)._pack(*cell._weights())
+        assert torch.equal(first.w1, fresh.w1)
+        assert torch.equal(first.w2, fresh.w2)
     cell = _cell()
-    first = cell.packed_weights()
-    assert cell.packed_weights() is first
     plan = default_plan(4, 8, 8, torch.float32)
-    u1, _ = unpack(first, plan, 8, 4, 8, torch.float32)
+    u1, _ = unpack(cell.packed_weights(), plan, 8, 4, 8, torch.float32)
     w1 = cell.conv.weight.detach().double()
     assert ((u1 - w1).abs() <= 2 ** -21 * w1.abs()).all()
 
 
-@pytest.mark.parametrize("change", ["version", "dtype", "data_ptr"])
-def test_cache_repacks_when_a_parameter_changes(change):
-    cell = _cell()
+# K2's cell under each change; the up cell, float32 only, under those it
+# can meet
+CACHE_CHANGES = ([pytest.param(c, "k2", id=c)
+                  for c in ("version", "dtype", "data_ptr")]
+                 + [pytest.param(c, "up_cell", id=f"up_cell-{c}")
+                    for c in ("version", "data_ptr")])
+
+
+@pytest.mark.parametrize("change,kind", CACHE_CHANGES)
+def test_cache_repacks_when_a_parameter_changes(change, kind):
+    cell = _cell(kind)
     first = cell.packed_weights()
     key = weights_key(*cell._weights())
     if change == "version":              # an optimiser's in-place update
@@ -542,7 +559,7 @@ def test_cache_repacks_when_a_parameter_changes(change):
     assert weights_key(*cell._weights()) != key
     second = cell.packed_weights()
     assert second is not first
-    fresh = pack_double_conv_weights(*cell._weights())
+    fresh = type(cell)._pack(*cell._weights())
     assert second.w1.dtype == cell.conv.weight.dtype
     assert torch.equal(second.w1, fresh.w1)
     assert torch.equal(second.w2, fresh.w2)

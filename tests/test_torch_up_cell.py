@@ -18,7 +18,7 @@ from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.models import blocks
 from uncltmo_tpu_torch.models.unet import UNetTMO
 from uncltmo_tpu_torch.ops.kernels.concat_skip import concat_skip_plain
-from uncltmo_tpu_torch.ops.kernels.double_conv import b_image_index
+from uncltmo_tpu_torch.ops.kernels.packing import b_image_index
 from uncltmo_tpu_torch.ops.kernels.up_cell import (
     K, PhasePlan, _CFGS, channels_ok, convt_as_conv, default_up_plan,
     pack_phase, pack_up_cell_weights, packed_sizes, stage_channels,

@@ -46,9 +46,10 @@ import torch.nn.functional as F
 from uncltmo_tpu_torch import params
 from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
 from uncltmo_tpu_torch.ops.kernels.double_conv import (
-    fused_double_conv3x3, pack_double_conv_weights, weights_key)
+    fused_double_conv3x3, pack_double_conv_weights)
+from uncltmo_tpu_torch.ops.kernels.packing import weights_key
 from uncltmo_tpu_torch.ops.kernels.up_cell import (
-    channels_ok, fused_up_cell, pack_up_cell_weights)
+    channels_ok, fused_up_cell, kernel_takes, pack_up_cell_weights)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype, no_autocast
 from uncltmo_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
 from uncltmo_tpu_torch.utils import profiling
@@ -228,7 +229,32 @@ def pad2d(x: torch.Tensor, pads: Sequence[int], padding_mode: str
 
 
 # ------------------------------------------------------------------ cells
-class DoubleConv(nn.Module):
+class _PackedCell(nn.Module):
+    """A cell of two 3x3 convolutions, `conv` and `conv1`, whose kernel
+    reads their weights packed (`_pack`)."""
+
+    _packed = None             # (weights_key, PackedCell)
+
+    def _weights(self):
+        return (self.conv.weight, self.conv.bias, self.conv1.weight,
+                self.conv1.bias)
+
+    def packed_weights(self, dtype: Optional[torch.dtype] = None):
+        """The kernel's weight layout, in `dtype` (the weights' own when
+        None), packed once and again only after a reload, a cast, a move or
+        an in-place update of a parameter, or for another `dtype`; a packing
+        opens the cell's span (`_pack_span`)."""
+        key = weights_key(*self._weights(), dtype=dtype)
+        if self._packed is None or self._packed[0] != key:
+            with self._pack_span():
+                ws = self._weights()
+                if dtype is not None:
+                    ws = [w.to(dtype) for w in ws]
+                self._packed = (key, self._pack(*ws))
+        return self._packed[1]
+
+
+class DoubleConv(_PackedCell):
     """(conv3x3 => [norm] => act) * 2 (reference `unet_parts.py:10-87`),
     parameters `conv`, `conv1`, `norm`, `norm1` as in the reference.
 
@@ -254,25 +280,12 @@ class DoubleConv(nn.Module):
         self.padding_mode = pad_mode(padding_mode)
         self.fused = (not pad and not post_pad_replicate
                       and unet_norm == "none" and activation == "relu")
-        self._packed = None        # (weights_key, PackedDoubleConv)
 
-    def _weights(self):
-        return (self.conv.weight, self.conv.bias, self.conv1.weight,
-                self.conv1.bias)
+    _pack = staticmethod(pack_double_conv_weights)
 
-    def packed_weights(self, dtype: Optional[torch.dtype] = None):
-        """The kernel's weight layout, in `dtype` (the weights' own when
-        None), packed once and again only after a reload, a cast, a move or
-        an in-place update of a parameter, or for another `dtype`; a packing
-        opens the span `uncltmo.k2.pack`."""
-        key = weights_key(*self._weights(), dtype=dtype)
-        if self._packed is None or self._packed[0] != key:
-            with profiling.trace("uncltmo.k2.pack"):
-                ws = self._weights()
-                if dtype is not None:
-                    ws = [w.to(dtype) for w in ws]
-                self._packed = (key, pack_double_conv_weights(*ws))
-        return self._packed[1]
+    @staticmethod
+    def _pack_span():
+        return profiling.trace("uncltmo.k2.pack")
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.fused:
@@ -347,11 +360,11 @@ class Down(nn.Module):
         return cell(pool(x), train)
 
 
-class DoubleConvT(nn.Module):
+class DoubleConvT(_PackedCell):
     """(ConvTranspose2d(k=3) => [norm] => act) * 2 (reference
     `unet_parts.py:144-193`); grows the spatial size by 4.  Without norm
     and with relu, the cell behind a `square_and_square_root` concat is one
-    launch of the up cell on a float32 CUDA tensor (`Up.forward`)."""
+    launch of the up cell where it takes the call (`Up.forward`)."""
 
     def __init__(self, in_ch: int, out_ch: int, unet_norm: str = "none",
                  activation: str = "relu"):
@@ -363,21 +376,12 @@ class DoubleConvT(nn.Module):
         self.norm1 = make_norm(unet_norm, out_ch)
         self.activation = activation
         self.fused = unet_norm == "none" and activation == "relu"
-        self._packed = None        # (weights_key, PackedUpCell)
 
-    def _weights(self):
-        return (self.conv.weight, self.conv.bias, self.conv1.weight,
-                self.conv1.bias)
+    _pack = staticmethod(pack_up_cell_weights)
 
-    def packed_weights(self):
-        """The up cell's weight layout, packed once and again only after a
-        reload, a cast, a move or an in-place update of a parameter; a
-        packing opens the span `uncltmo.up.pack`."""
-        key = weights_key(*self._weights())
-        if self._packed is None or self._packed[0] != key:
-            with profiling.trace("uncltmo.up.pack"):
-                self._packed = (key, pack_up_cell_weights(*self._weights()))
-        return self._packed[1]
+    @staticmethod
+    def _pack_span():
+        return profiling.trace("uncltmo.up.pack")
 
     def forward(self, x, train: bool = False):
         act = activation_fn(self.activation)
@@ -494,9 +498,7 @@ class Up(nn.Module):
         diff_x = x2.shape[3] - x1.shape[3]
         if diff_y or diff_x:
             x1 = _pad_or_crop(x1, diff_y, diff_x, self.padding_mode)
-        if (self.fused_cell and x2.is_cuda and autocast_dtype("cuda") is None
-                and x2.dtype == x1.dtype == self.conv.conv.weight.dtype
-                == torch.float32):
+        if self.fused_cell and kernel_takes(x2, x1, *self.conv._weights()):
             return fused_up_cell(x2, x1, *self.conv._weights(),
                                  packed=self.conv.packed_weights())
         return self.conv(concat_skip(x2, x1, self.con_operator,

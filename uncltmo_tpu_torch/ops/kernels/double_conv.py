@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel `fused_double_conv3x3` (`uncltmo_tpu/ops/
 pallas_kernels.py:88-132`, oracle `double_conv3x3_reference` at `:241-250`).
-The CUDA C++ kernels are in `csrc/double_conv3x3.cu` (its header says what
-bounds them on Hopper and how the design answers that); this module holds
-the plain PyTorch version, the weight packing and the ctypes wrapper.
+The CUDA C++ kernels are in `csrc/double_conv3x3.cu` (float32) and
+`csrc/double_conv3x3_bf16.cu` (bfloat16), one library each, over what both
+share in `csrc/double_conv3x3.cuh` (whose header says what bounds them on
+Hopper and how the design answers that); this module holds the plain
+PyTorch version, the weight packing and the ctypes wrapper.
 
 Dispatch is by the tensor's device alone: CPU tensors take the plain
 version (differentiated by autograd), CUDA tensors go through
@@ -36,30 +38,19 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from uncltmo_tpu_torch.ops.kernels.build import load_library
+from uncltmo_tpu_torch.ops.kernels.build import call, load_library
+from uncltmo_tpu_torch.ops.kernels.packing import (
+    PackedCell, check_packed, round_up, stage_images, tf32_split)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype
 
-_SOURCE = "double_conv3x3.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def library_defines(dtype: torch.dtype) -> tuple:
-    """The source is built once per element type (two nvcc side by side
-    instead of one for both)."""
-    return (f"-DUNCLTMO_K2_ELEM={_DTYPE_CODE[dtype]}",)
-
-
-class PackedDoubleConv(NamedTuple):
-    """Weights in the layout the kernel reads."""
-    w1: torch.Tensor
-    b1: torch.Tensor
-    w2: torch.Tensor
-    b2: torch.Tensor
+# one source and library per element type
+_SOURCES = {torch.float32: "double_conv3x3.cu",
+            torch.bfloat16: "double_conv3x3_bf16.cu"}
 
 
 class Plan(NamedTuple):
     """What the packing and the kernel agree on for one call
-    (`uncltmo_double_conv3x3_plan` in `csrc/double_conv3x3.cu`)."""
+    (`uncltmo_double_conv3x3_plan`, `csrc/double_conv3x3.cuh:plan_out`)."""
     cinp: int      # input channels, padded (1: Cin == 1, conv1 on CUDA cores)
     cinc: int      # input channels staged at a time
     c1p: int       # intermediate channels, padded to whole chunks
@@ -76,12 +67,12 @@ class Plan(NamedTuple):
     persistent: int  # 1: the persistent float32 kernel
 
 
-# The defaults of `csrc/double_conv3x3.cu` by element type and
-# output-channel width ("inc": Cin == 1, C2 <= 32): bfloat16
-# (`UNCLTMO_K2_CFG*`) as (TH, TW, NWG, CH, C2P, CL, CINC, TG, NST), float32
-# (`UNCLTMO_K2F_CFG*`, the persistent kernel) as (TH, TW, NWG, CH, NB, C2P,
-# CL, CINC, CINS, TG, NST, D2).  On a CUDA tensor the plan comes from the
-# built library itself; this table serves the packing of CPU tensors.
+# The defaults of the two sources by element type and output-channel
+# width ("inc": Cin == 1, C2 <= 32): bfloat16 (`UNCLTMO_K2_CFG*`) as (TH,
+# TW, NWG, CH, C2P, CL, CINC, TG, NST), float32 (`UNCLTMO_K2F_CFG*`, the
+# persistent kernel) as (TH, TW, NWG, CH, NB, C2P, CL, CINC, CINS, TG, NST,
+# D2).  On a CUDA tensor the plan comes from the built library itself;
+# this table serves the packing of CPU tensors.
 _CFGS = {
     torch.bfloat16: {"inc": (12, 28, 2, 32, 32, 1, 64, 9, 2),
                      32: (12, 28, 2, 32, 32, 1, 64, 3, 3),
@@ -96,20 +87,16 @@ _CFGS = {
 }
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
 def padded_c2(c2: int) -> int:
     """C2 padded to the output-channel width of a configuration: 32, 64,
     128 or a multiple of 256 (one pass of the grid's y per 256)."""
-    return next((n for n in (32, 64, 128) if c2 <= n), _round_up(c2, 256))
+    return next((n for n in (32, 64, 128) if c2 <= n), round_up(c2, 256))
 
 
 def padded_cin(cin: int, es: int) -> int:
     """Cin padded to a whole swizzle row a tap: 16 or 32 channels, else a
     multiple of 128 bytes."""
-    return 16 if cin <= 16 else 32 if cin <= 32 else _round_up(cin, 128 // es)
+    return 16 if cin <= 16 else 32 if cin <= 32 else round_up(cin, 128 // es)
 
 
 def default_plan(cin: int, c1: int, c2: int, dtype: torch.dtype) -> Plan:
@@ -125,7 +112,7 @@ def default_plan(cin: int, c1: int, c2: int, dtype: torch.dtype) -> Plan:
         ch1, persistent = ch, 0
     es = torch.finfo(dtype).bits // 8
     cinp = 1 if cin1 else padded_cin(cin, es)
-    return Plan(cinp, 1 if cin1 else min(cinp, cinc_max), _round_up(c1, ch1),
+    return Plan(cinp, 1 if cin1 else min(cinp, cinc_max), round_up(c1, ch1),
                 ch, cl, c2blk // cl, c2p, th, tw, tg, nst, nwg, ch1,
                 persistent)
 
@@ -137,56 +124,9 @@ def kernel_plan(cin: int, c1: int, c2: int, dtype: torch.dtype,
     if torch.device(device).type != "cuda":
         return default_plan(cin, c1, c2, dtype)
     out = (ctypes.c_int * len(Plan._fields))()
-    lib = _library(dtype)
-    err = lib.uncltmo_double_conv3x3_plan(cin, c1, c2, _DTYPE_CODE[dtype],
-                                          out)
-    if err != 0:
-        raise RuntimeError("fused_double_conv3x3 plan failed: "
-                           + lib.uncltmo_cuda_error_string(err).decode())
+    call(load_library(_SOURCES[dtype]), "uncltmo_double_conv3x3_plan", cin,
+         c1, c2, out)
     return Plan(*out)
-
-
-def b_image_index(k: int, n: int, es: int) -> torch.Tensor:
-    """Element offsets (k, n) -> position in the shared-memory image of a
-    K x N weight operand as `wgmma` reads it through the kernel's
-    descriptors: K-major, each row n holding K elements in S = min(K * es,
-    128) bytes (the swizzle width: 32, 64 or 128), K beyond 128 bytes in
-    column blocks of N rows, and the 16-byte chunks of a row XOR-ed with
-    bits of the row number as Hopper's 128 / 64 / 32-byte swizzles do
-    (address bits [4, 4 + log2(S / 16)) ^= bits [7, ...))."""
-    s = min(k * es, 128)
-    assert s in (32, 64, 128) and k * es % s == 0 and n % 8 == 0, (k, n, es)
-    rk, per16 = s // es, 16 // es
-    kk = torch.arange(k)[:, None]
-    nn = torch.arange(n)[None, :]
-    swz = (nn % 8) >> {128: 0, 64: 1, 32: 2}[s]
-    chunk = ((kk % rk) // per16) ^ swz
-    byte = (kk // rk) * n * s + nn * s + chunk * 16 + (kk % per16) * es
-    return byte // es
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as the card's `cvt.rna.tf32.f32`."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(w: torch.Tensor):
-    """w = hi + lo + (error below 2^-21 |w|), hi and lo both TF32."""
-    hi = tf32_round(w)
-    return hi, tf32_round(w - hi)
-
-
-def _images(b: torch.Tensor, es: int) -> torch.Tensor:
-    """b (planes, ..., N, K), a weight operand per row n of outputs ->
-    (..., planes, K * N) in the stage image's order."""
-    planes, n, k = b.shape[0], b.shape[-2], b.shape[-1]
-    idx = b_image_index(k, n, es).T.reshape(-1)
-    out = b.new_empty(b.shape[1:-2] + (planes, k * n))
-    for p in range(planes):
-        out[..., p, idx] = b[p].reshape(b.shape[1:-2] + (k * n,))
-    return out
 
 
 @functools.lru_cache(maxsize=64)
@@ -212,19 +152,19 @@ def _pack_order(plan: Plan, es: int, device: torch.device):
         # (plane, block, rank, tap, n, cin) per Cin chunk
         src = src.permute(0, 2, 3, 1, 4, 5)
         o1 = torch.cat([
-            _images(src[..., i:i + plan.cinc], es).reshape(n_b, cl, -1)
+            stage_images(src[..., i:i + plan.cinc], es).reshape(n_b, cl, -1)
             for i in range(0, plan.cinp, plan.cinc)], dim=2).reshape(-1)
     ny = plan.c2p // (cl * plan.n2)
     src = torch.arange(planes * 9 * plan.c2p * plan.c1p).reshape(
         planes, 9, ny, cl, plan.n2, n_j, ch)
     # (plane, pass, j, rank, tap, n, k)
-    o2 = _images(src.permute(0, 2, 5, 3, 1, 4, 6), es).reshape(-1)
+    o2 = stage_images(src.permute(0, 2, 5, 3, 1, 4, 6), es).reshape(-1)
     return o1.to(device), o2.to(device)
 
 
 def pack_double_conv_weights(w1: torch.Tensor, b1: torch.Tensor,
                              w2: torch.Tensor, b2: torch.Tensor,
-                             plan: Plan | None = None) -> PackedDoubleConv:
+                             plan: Plan | None = None) -> PackedCell:
     """Weights OIHW (C1, Cin, 3, 3), (C2, C1, 3, 3) and biases in the order
     and byte image in which the kernel's producer copies them into its
     weight stages (`_pack_order`), channel counts zero-padded as the plan
@@ -248,7 +188,7 @@ def pack_double_conv_weights(w1: torch.Tensor, b1: torch.Tensor,
     def planes(t):
         return torch.stack(tf32_split(t)) if es == 4 else t
 
-    return PackedDoubleConv(
+    return PackedCell(
         (taps1 if plan.cinp == 1 else planes(taps1)).reshape(-1)[o1],
         b1.detach().contiguous(), planes(taps2).reshape(-1)[o2],
         b2.detach().contiguous())
@@ -260,14 +200,6 @@ def packed_sizes(plan: Plan, es: int):
     planes = 2 if es == 4 else 1
     return 9 * plan.cinp * planes * plan.c1p if plan.cinp > 1 else \
         9 * plan.c1p, 9 * planes * plan.c2p * plan.c1p
-
-
-def weights_key(*params: torch.Tensor, dtype: torch.dtype | None = None):
-    """What a cached packing depends on: a reload, a cast, a move or an
-    in-place update of any parameter changes the key, and so does the dtype
-    the weights are packed in (`dtype`, None for their own)."""
-    return tuple((p.data_ptr(), p.dtype, p.device, p._version)
-                 for p in params) + (dtype,)
 
 
 def double_conv3x3_plain(x, w1, b1, w2, b2):
@@ -297,24 +229,9 @@ def double_conv3x3_backward(x, w1, b1, w2, b2, y, gy, need_dx: bool = True):
     return dx, dw1, db1, dw2, db2
 
 
-def _library(dtype: torch.dtype) -> ctypes.CDLL:
-    lib = load_library(_SOURCE, library_defines(dtype))
-    fn = lib.uncltmo_double_conv3x3
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.uncltmo_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.uncltmo_cuda_error_string.restype = ctypes.c_char_p
-        lib.uncltmo_double_conv3x3_plan.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
-        lib.uncltmo_double_conv3x3_plan.restype = ctypes.c_int
-    return lib
-
-
 def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor,
-                         packed: PackedDoubleConv | None = None
+                         packed: PackedCell | None = None
                          ) -> torch.Tensor:
     """(B, Cin, H, W) -> (B, C2, H-4, W-4); weights OIHW (C1, Cin, 3, 3) and
     (C2, C1, 3, 3), biases (C1,), (C2,).
@@ -333,7 +250,7 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return double_conv3x3_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_conv3x3: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _SOURCES:
         raise ValueError(f"fused_double_conv3x3: unsupported dtype {x.dtype}")
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t.dtype != x.dtype or t.device != x.device:
@@ -356,29 +273,17 @@ def fused_double_conv3x3(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _launch(x, w1, b1, w2, b2, packed):
-    lib = _library(x.dtype)
     x = x.contiguous()
     b, cin, h, w = x.shape
     c1, c2 = w1.shape[0], w2.shape[0]
     if packed is None:
         packed = pack_double_conv_weights(w1, b1, w2, b2)
     plan = kernel_plan(cin, c1, c2, x.dtype, x.device)
-    if (packed.w1.numel(), packed.w2.numel()) != packed_sizes(
-            plan, x.element_size()):
-        raise ValueError("fused_double_conv3x3: `packed` was not packed "
-                         f"under the kernel's plan {plan}")
+    check_packed("fused_double_conv3x3", packed,
+                 packed_sizes(plan, x.element_size()), plan)
     y = torch.empty((b, c2, h - 4, w - 4), dtype=x.dtype, device=x.device)
-    # the launch and its shared-memory attribute go to the current card:
-    # make it x's, whichever card the caller had current
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.uncltmo_double_conv3x3(
-            x.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(),
-            packed.w2.data_ptr(), packed.b2.data_ptr(), y.data_ptr(), b,
-            cin, h, w, c1, c2, _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError("fused_double_conv3x3 launch failed: "
-                           + lib.uncltmo_cuda_error_string(err).decode())
+    call(load_library(_SOURCES[x.dtype]), "uncltmo_double_conv3x3", x,
+         *packed, y, b, cin, h, w, c1, c2, on=x)
     fused_double_conv3x3.launches += 1
     return y
 

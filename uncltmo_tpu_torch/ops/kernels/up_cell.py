@@ -10,15 +10,15 @@ relu and no norm computes, after its 2x2 upsample and `_pad_or_crop`,
 The TPU package runs it as K1 (`fused_concat_skip`) and two XLA ConvTs;
 this port ran K1 and two cuDNN ConvTs (FFT convolutions in float32, TF32
 off).  On the card the cell is one launch of `up_cell_kernel`
-(`csrc/double_conv3x3.cu`, its header says how it is built): phase 1
+(`csrc/up_cell.cu`, its header says how it is built): phase 1
 makes the concat's blocks as it stages its input (x2 and x1 are read, the
 4C-channel concat is never written) and writes the intermediate `mid`
 (B, C1, H+2, W+2, after relu); phase 2 reads it back and writes y (B, C2,
 H+4, W+4).  Products are split-TF32, as K2's float32 kernel makes them.
 
-Float32 only: a bfloat16 generator (the bf16 serving engine, bf16 training
-under autocast) keeps the torch layers for its decoder cells, and so does
-every other operator, norm or activation (`Up.fused_cell`).
+Float32 only (`kernel_takes`): a bfloat16 generator keeps the torch layers
+for its decoder cells, and so does every other operator, norm or
+activation (`Up.fused_cell`).
 
 Dispatch is by the tensor's device: CPU tensors take `up_cell_plain`, the
 cell exactly as `Up` computes it there (K1's plain version, then
@@ -34,7 +34,7 @@ spatial axes, in/out swapped), split into TF32 hi and lo planes, in the
 byte image of the kernel's weight stages and the order it consumes them,
 under the plan of the configuration that serves the cell
 (`up_cell_plan`).  `models/blocks.py:DoubleConvT` packs once and keeps the
-result, keyed on `weights_key`.
+result, keyed on `packing.weights_key`.
 """
 from __future__ import annotations
 
@@ -46,10 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from uncltmo_tpu_torch import params
+from uncltmo_tpu_torch.ops.kernels.build import call, load_library
 from uncltmo_tpu_torch.ops.kernels.concat_skip import (
     concat_skip_plain, fused_concat_skip, fused_concat_skip_backward)
-from uncltmo_tpu_torch.ops.kernels.double_conv import (
-    _images, _library, tf32_split)
+from uncltmo_tpu_torch.ops.kernels.packing import (
+    PackedCell, check_packed, round_up, stage_images, tf32_split)
+from uncltmo_tpu_torch.ops.precision import autocast_dtype
+
+_SOURCE = "up_cell.cu"
 
 
 # input channels a weight stage (one tap) and a staged chunk (`UK`)
@@ -73,15 +77,7 @@ class UpPlan(NamedTuple):
     b: PhasePlan   # phase 2: mid -> y
 
 
-class PackedUpCell(NamedTuple):
-    """Weights in the layout the kernel reads."""
-    w1: torch.Tensor
-    b1: torch.Tensor
-    w2: torch.Tensor
-    b2: torch.Tensor
-
-
-# The defaults of `csrc/double_conv3x3.cu` (`UNCLTMO_UP_CFG*`): NST, then
+# The defaults of `csrc/up_cell.cu` (`UNCLTMO_UP_CFG*`): NST, then
 # per phase TH, TW, MW, N, J, then SQ; three consumer warpgroups.  On a
 # CUDA tensor the plan comes from the built library itself; this table
 # serves the packing of CPU tensors.
@@ -107,15 +103,20 @@ def channels_ok(c: int) -> bool:
     return c % K == 0
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+def kernel_takes(x2: torch.Tensor, x1: torch.Tensor,
+                 *weights: torch.Tensor) -> bool:
+    """Whether the kernel takes a call: x2, x1 and the weights float32 on
+    x2's CUDA card, outside autocast (else the cell keeps torch's layers)."""
+    return (x2.is_cuda and autocast_dtype("cuda") is None
+            and all(t.dtype == torch.float32 and t.device == x2.device
+                    for t in (x2, x1, *weights)))
 
 
 def _phase(cin: int, cout: int, cat: bool, th, tw, mw, n, _j) -> PhasePlan:
     """`up_phase_plan`: phase 1 reads the concat's Cin channels, phase 2
     C1 padded to whole chunks."""
-    return PhasePlan(cin if cat else _round_up(cin, K), n,
-                     _round_up(cout, n), th, tw, mw)
+    return PhasePlan(cin if cat else round_up(cin, K), n,
+                     round_up(cout, n), th, tw, mw)
 
 
 def default_up_plan(cin: int, c1: int, c2: int) -> UpPlan:
@@ -126,16 +127,10 @@ def default_up_plan(cin: int, c1: int, c2: int) -> UpPlan:
 
 
 def library_plans(lib: ctypes.CDLL, cin: int, c1: int, c2: int) -> UpPlan:
-    """The plan of the configuration of `lib` (a built float32 library)
-    that serves the cell."""
-    fn = lib.uncltmo_up_cell_plan
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
+    """The plan of the configuration of `lib` (a built library of
+    `csrc/up_cell.cu`) that serves the cell."""
     out = (ctypes.c_int * 13)()
-    err = fn(cin, c1, c2, out)
-    if err != 0:
-        raise RuntimeError(f"fused_up_cell plan failed: error {err}")
+    call(lib, "uncltmo_up_cell_plan", cin, c1, c2, out)
     return UpPlan(out[0], PhasePlan(*out[1:7]), PhasePlan(*out[7:13]))
 
 
@@ -144,7 +139,7 @@ def up_cell_plan(cin: int, c1: int, c2: int, device) -> UpPlan:
     library's own on a CUDA device, `default_up_plan` elsewhere."""
     if torch.device(device).type != "cuda":
         return default_up_plan(cin, c1, c2)
-    return library_plans(_up_library(), cin, c1, c2)
+    return library_plans(load_library(_SOURCE), cin, c1, c2)
 
 
 def convt_as_conv(w: torch.Tensor) -> torch.Tensor:
@@ -181,7 +176,7 @@ def _pack_order(ph: PhasePlan, cat: bool, device: torch.device
     # (plane, pass, tap, n, cin) per run
     src = src.permute(0, 2, 1, 3, 4)
     return torch.cat([
-        _images(src[..., c:c + K], 4).reshape(passes, -1)
+        stage_images(src[..., c:c + K], 4).reshape(passes, -1)
         for c in stage_channels(ph, cat)], dim=1).reshape(-1).to(device)
 
 
@@ -198,16 +193,14 @@ def pack_phase(w: torch.Tensor, ph: PhasePlan, cat: bool) -> torch.Tensor:
 
 def pack_up_cell_weights(w1: torch.Tensor, b1: torch.Tensor,
                          w2: torch.Tensor, b2: torch.Tensor,
-                         plan: UpPlan | None = None) -> PackedUpCell:
+                         plan: UpPlan | None = None) -> PackedCell:
     """Both ConvTs' weights (Cin, C1, 3, 3) and (C1, C2, 3, 3) packed under
     `plan` (`up_cell_plan` of their device when None); biases as they are
     (contiguous)."""
     if plan is None:
         plan = up_cell_plan(w1.shape[0], w1.shape[1], w2.shape[1], w1.device)
-    return PackedUpCell(pack_phase(w1, plan.a, True),
-                        b1.detach().contiguous(),
-                        pack_phase(w2, plan.b, False),
-                        b2.detach().contiguous())
+    return PackedCell(pack_phase(w1, plan.a, True), b1.detach().contiguous(),
+                      pack_phase(w2, plan.b, False), b2.detach().contiguous())
 
 
 def packed_sizes(plan: UpPlan):
@@ -254,58 +247,29 @@ def up_cell_backward(x2, x1, w1, w2, mid, y, gy, need_dx: bool = True):
     return dx2, dx1, dw1, db1, dw2, db2
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.uncltmo_up_cell
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.uncltmo_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.uncltmo_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _up_library() -> ctypes.CDLL:
-    """The float32 library of K2's source, which holds the up cell."""
-    return _bind(_library(torch.float32))
-
-
-def launch_with(lib: ctypes.CDLL, x2, x1, packed: PackedUpCell, y, mid,
+def launch_with(lib: ctypes.CDLL, x2, x1, packed: PackedCell, y, mid,
                 c1: int, c2: int) -> torch.Tensor:
     """One launch of `lib`'s up cell on contiguous float32 CUDA tensors
     into y (B, C2, H+4, W+4); `mid` (B, C1, H+2, W+2) or None for a
     temporary.  Returns mid."""
-    _bind(lib)
     b, cs, h, w = x2.shape
     if mid is None:
         mid = torch.empty((b, c1, h + 2, w + 2), device=x2.device)
     ctr = torch.zeros(1, dtype=torch.int32, device=x2.device)
-    # the launch and its shared-memory attribute go to the current card:
-    # make it x2's, whichever card the caller had current
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = lib.uncltmo_up_cell(
-            x2.data_ptr(), x1.data_ptr(), packed.w1.data_ptr(),
-            packed.b1.data_ptr(), packed.w2.data_ptr(), packed.b2.data_ptr(),
-            mid.data_ptr(), y.data_ptr(), ctr.data_ptr(), b, cs, h, w, c1,
-            c2, params.EPSILON, stream)
-    if err != 0:
-        raise RuntimeError("fused_up_cell launch failed: "
-                           + lib.uncltmo_cuda_error_string(err).decode())
+    call(lib, "uncltmo_up_cell", x2, x1, *packed, mid, y, ctr, b, cs, h, w,
+         c1, c2, params.EPSILON, on=x2)
     return mid
 
 
 def _launch(x2, x1, w1, b1, w2, b2, packed):
-    lib = _up_library()
+    lib = load_library(_SOURCE)
     x2, x1 = x2.contiguous(), x1.contiguous()
     b, cs, h, w = x2.shape
     c1, c2 = w1.shape[1], w2.shape[1]
     if packed is None:
         packed = pack_up_cell_weights(w1, b1, w2, b2)
     plan = library_plans(lib, 4 * cs, c1, c2)
-    if (packed.w1.numel(), packed.w2.numel()) != packed_sizes(plan):
-        raise ValueError("fused_up_cell: `packed` was not packed under the "
-                         f"kernel's plan {plan}")
+    check_packed("fused_up_cell", packed, packed_sizes(plan), plan)
     y = torch.empty((b, c2, h + 4, w + 4), device=x2.device)
     mid = launch_with(lib, x2, x1, packed, y, None, c1, c2)
     fused_up_cell.launches += 1
@@ -335,27 +299,23 @@ class _UpCell(torch.autograd.Function):
 
 def fused_up_cell(x2: torch.Tensor, x1: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                  packed: PackedUpCell | None = None) -> torch.Tensor:
+                  packed: PackedCell | None = None) -> torch.Tensor:
     """x2, x1 (B, C, H, W) -> (B, C2, H+4, W+4); ConvTranspose2d weights
     (4C, C1, 3, 3) and (C1, C2, 3, 3), biases (C1,), (C2,).
 
-    The plain version on a CPU tensor; the CUDA kernel on a float32 CUDA
-    tensor (counted in `fused_up_cell.launches`), differentiable through
-    `up_cell_backward` (`fused_up_cell.backward_calls`).  `packed` is
+    The plain version on a CPU tensor; the CUDA kernel where it takes the
+    call (`kernel_takes`, counted in `fused_up_cell.launches`),
+    differentiable through `up_cell_backward`
+    (`fused_up_cell.backward_calls`); any other call raises.  `packed` is
     `pack_up_cell_weights` of the same four tensors; without it the weights
     are packed in this call."""
     if x2.device.type == "cpu":
         return up_cell_plain(x2, x1, w1, b1, w2, b2)
-    if x2.device.type != "cuda":
-        raise ValueError(f"fused_up_cell: unsupported device {x2.device}")
-    tensors = (("x1", x1), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2))
-    if x2.dtype != torch.float32 or any(
-            t.dtype != torch.float32 or t.device != x2.device
-            for _, t in tensors):
-        raise ValueError("fused_up_cell: float32 tensors on one card only "
-                         "(x2 " + f"{x2.dtype} on {x2.device}, " + ", ".join(
-                             f"{n} {t.dtype} on {t.device}"
-                             for n, t in tensors) + ")")
+    if not kernel_takes(x2, x1, w1, b1, w2, b2):
+        raise ValueError("fused_up_cell: float32 tensors on one CUDA card, "
+                         "outside autocast, only (x2, x1, w1, b1, w2, b2: " +
+                         ", ".join(f"{t.dtype} on {t.device}" for t in (
+                             x2, x1, w1, b1, w2, b2)) + ")")
     if x2.dim() != 4 or x1.shape != x2.shape:
         raise ValueError(f"fused_up_cell: x2 {tuple(x2.shape)} and x1 "
                          f"{tuple(x1.shape)} must be one (B, C, H, W) shape")
