@@ -32,10 +32,11 @@ One JSON line per phase:
     inc/down0..2 shapes, B=60 and B=8, f32/bf16, timed, each row with the
     cluster size, tile and registers of its configuration (f32 rows also
     with the split-TF32 bound); then untimed at ragged and padded shapes;
-    then (`k2_up_cell`) the decoder's up cell, float32, vs plain at the
-    up0..3 shapes, B=60, timed beside what it replaced, K1 with cuDNN's
-    two ConvTs and relus, with cuDNN's default algorithms and with
-    `cudnn.benchmark` on, each row with its plan and TFLOP/s;
+    then (`k2_up_cell`) the decoder's up cell with its 2x2 upsample
+    folded in, float32, vs plain at the up0..3 shapes, B=60, timed beside
+    what it replaced, cuDNN's ConvT, bias and pad then the two-phase cell,
+    each row with its plan, TFLOP/s, phase 0's bytes bound and the
+    launches that ran phase 0;
  5. the generator forward (8x1x256x256) with the kernels vs all-plain;
  6. end to end: synthetic 1080x1920 .hdr files -> PNGs in f32 and bf16,
     kernel launch counts of that run (`serve_launches`: a float32 forward
@@ -571,59 +572,76 @@ def phase_k2(torch, dtypes):
 
 
 def up_cell_rows(torch, g):
-    """The decoder's up cell (float32) against its plain version at the
-    four cells, B = 60, timed beside what it replaced: K1 with cuDNN's two
-    ConvTs and relus, with the default algorithms and with
-    `cudnn.benchmark` on; `bound_ms` is the kernel's split-TF32 products
-    (3 x output-size flops at 495 TFLOP/s)."""
+    """The decoder's up cell (float32) with its 2x2 upsample folded in (the
+    three-phase launch, x -> y) against its plain version at the four
+    cells, B = 60, timed beside what it replaced: cuDNN's ConvT with its
+    bias and the pad to the skip, then the two-phase cell (`library_ms`);
+    `two_phase_ms` is that cell alone.  `bound_ms` is the cell's split-TF32
+    products (3 x output-size flops at 495 TFLOP/s) plus phase 0's bytes
+    (x read, x1 written, at 3.35 TB/s: `phase0_bound_ms`);
+    `upsample_folded` counts the row's launches that ran phase 0."""
     import torch.nn.functional as F
-    from uncltmo_tpu_torch.ops.kernels.concat_skip import fused_concat_skip
+    from uncltmo_tpu_torch.models.blocks import _pad_or_crop
     from uncltmo_tpu_torch.ops.kernels.up_cell import (
-        fused_up_cell, pack_up_cell_weights, up_cell_plain, up_cell_plan)
+        Upsample, fused_up_cell, pack_up_cell_weights, pack_upsample_weights,
+        up_cell_plan, up_fold_plain)
     rows = []
     for name, c, c1, s in UP_SHAPES:
+        h0 = s // 2
         x2 = torch.relu(torch.randn((BATCH, c, s, s), generator=g,
                                     device="cuda"))
-        x1 = torch.randn((BATCH, c, s, s), generator=g, device="cuda")
+        x = torch.randn((BATCH, c, h0, h0), generator=g, device="cuda")
+        w_up = torch.randn((c, c, 2, 2), generator=g, device="cuda") * (
+            1 / c) ** 0.5
+        b_up = torch.randn((c,), generator=g, device="cuda") * 0.1
         wts = [torch.randn(shape, generator=g, device="cuda") * std
                for shape, std in (((4 * c, c1, 3, 3), (2 / (36 * c)) ** 0.5),
                                   ((c1,), 0.1),
                                   ((c1, c1, 3, 3), (2 / (9 * c1)) ** 0.5),
                                   ((c1,), 0.1))]
-        out = fused_up_cell(x2, x1, *wts)
-        ref = up_cell_plain(x2, x1, *wts)
+        folded = fused_up_cell.upsample_folded
+        out = fused_up_cell(x2, x, *wts,
+                            upsample=Upsample(w_up, b_up, "edge"))
+        ref = up_fold_plain(x2, x, w_up, b_up, *wts, "edge")
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         if out.shape != ref.shape or not err <= UP_TOL * max(scale, 1e-6):
             raise AssertionError(f"up cell {name}: max err {err} (plain max "
                                  f"{scale})")
         packed = pack_up_cell_weights(*wts)
-        ms = time_ms(lambda: fused_up_cell(x2, x1, *wts, packed=packed))
-        plain = time_ms(lambda: up_cell_plain(x2, x1, *wts))
+        up = Upsample(w_up, b_up, "edge",
+                      pack_upsample_weights(w_up, c1, c1))
+        ms = time_ms(lambda: fused_up_cell(x2, x, *wts, packed=packed,
+                                           upsample=up))
+        plain = time_ms(lambda: up_fold_plain(x2, x, w_up, b_up, *wts,
+                                              "edge"))
 
-        def library():
-            mid = F.relu_(F.conv_transpose2d(fused_concat_skip(x2, x1),
-                                             wts[0], wts[1]))
-            F.relu_(F.conv_transpose2d(mid, wts[2], wts[3]))
-        lib = {}
-        for bench in (False, True):
-            torch.backends.cudnn.benchmark = bench
-            lib[bench] = time_ms(library)
-        torch.backends.cudnn.benchmark = False
+        def upsample():
+            return _pad_or_crop(F.conv_transpose2d(x, w_up, b_up, stride=2),
+                                s - 2 * h0, s - 2 * h0, "edge")
+        x1 = upsample()
+        two_phase = time_ms(lambda: fused_up_cell(x2, x1, *wts,
+                                                  packed=packed))
+        library = time_ms(lambda: fused_up_cell(x2, upsample(), *wts,
+                                                packed=packed))
         flops = 2 * 9 * BATCH * (4 * c * c1 * (s + 2) ** 2
                                  + c1 * c1 * (s + 4) ** 2)
+        up_flops = 2 * BATCH * c * 4 * c * h0 * h0
+        phase0_bound = (x.numel() + x1.numel()) * 4 / HBM_BYTES_PER_S * 1e3
         plan = up_cell_plan(4 * c, c1, c1, x2.device)
         row = dict(dtype="float32", cell=name, batch=BATCH,
-                   shape=list(x2.shape), plan=plan._asdict(),
-                   max_abs_err=err, plain_max_abs=scale, ms=ms,
-                   plain_ms=plain, library_ms=min(lib.values()),
-                   cudnn_default_ms=lib[False], cudnn_benchmark_ms=lib[True],
-                   flops=flops, tflops=flops / ms / 1e9,
-                   bound_ms=3 * flops / TF32_FLOPS * 1e3,
-                   bound_by="operations")
+                   shape=list(x2.shape), upsample_input=list(x.shape),
+                   plan=plan._asdict(), max_abs_err=err, plain_max_abs=scale,
+                   ms=ms, plain_ms=plain, library_ms=library,
+                   two_phase_ms=two_phase, upsample_library_ms=library
+                   - two_phase, flops=flops + up_flops,
+                   tflops=(flops + up_flops) / ms / 1e9,
+                   bound_ms=3 * flops / TF32_FLOPS * 1e3 + phase0_bound,
+                   phase0_bound_ms=phase0_bound, bound_by="operations",
+                   upsample_folded=fused_up_cell.upsample_folded - folded)
         rows.append(row)
         emit("k2_up_cell", **row)
-        del x2, x1, out, ref
+        del x2, x, x1, out, ref
     return rows
 
 
@@ -675,7 +693,8 @@ def phase_generator(torch, dtypes, seed):
     from uncltmo_tpu_torch.models.unet import UNetTMO, seeded_init_
     from uncltmo_tpu_torch.ops.kernels.concat_skip import concat_skip_plain
     from uncltmo_tpu_torch.ops.kernels.double_conv import double_conv3x3_plain
-    from uncltmo_tpu_torch.ops.kernels.up_cell import up_cell_plain
+    from uncltmo_tpu_torch.ops.kernels.up_cell import (
+        up_cell_plain, up_fold_plain)
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     x = torch.rand((8, 1, 256, 256), generator=g, device="cuda")
     for dname, dtype in dtypes.items():
@@ -692,7 +711,10 @@ def phase_generator(torch, dtypes, seed):
             blocks.fused_double_conv3x3 = (
                 lambda *args, packed=None: double_conv3x3_plain(*args))
             blocks.fused_up_cell = (
-                lambda *args, packed=None: up_cell_plain(*args))
+                lambda *args, packed=None, upsample=None: up_cell_plain(
+                    *args) if upsample is None else up_fold_plain(
+                    *args[:2], upsample.weight, upsample.bias, *args[2:],
+                    upsample.padding_mode))
             try:
                 ref, _ = model(x.to(dtype))
             finally:
@@ -761,6 +783,7 @@ def reset_counts() -> None:
     fused_concat_skip.launches = 0
     fused_double_conv3x3.launches = 0
     fused_up_cell.launches = 0
+    fused_up_cell.upsample_folded = 0
 
 
 def read_counts() -> dict:
@@ -769,17 +792,20 @@ def read_counts() -> dict:
     from uncltmo_tpu_torch.ops.kernels.up_cell import fused_up_cell
     return {"fused_concat_skip": fused_concat_skip.launches,
             "fused_double_conv3x3": fused_double_conv3x3.launches,
-            "fused_up_cell": fused_up_cell.launches}
+            "fused_up_cell": fused_up_cell.launches,
+            "fused_up_cell_upsample_folded": fused_up_cell.upsample_folded}
 
 
 def serve_launches(dname: str, forwards: int = 1) -> dict:
     """Launches of `forwards` published generator forwards: K2 in `inc`
     and `down0..2`; in float32 the up cell in the four decoder cells (K1's
-    concat folded into it), in bfloat16 K1 and torch's ConvTs."""
+    concat and the 2x2 upsample folded into it), in bfloat16 K1 and
+    torch's ConvTs."""
     f32 = dname == "float32"
     return {"fused_concat_skip": 0 if f32 else 4 * forwards,
             "fused_double_conv3x3": 4 * forwards,
-            "fused_up_cell": 4 * forwards if f32 else 0}
+            "fused_up_cell": 4 * forwards if f32 else 0,
+            "fused_up_cell_upsample_folded": 4 * forwards if f32 else 0}
 
 
 def launched(counts: dict) -> dict:
@@ -1305,6 +1331,7 @@ def train_counts() -> dict:
             "fused_double_conv3x3_backward_calls":
                 fused_double_conv3x3.backward_calls,
             "fused_up_cell": fused_up_cell.launches,
+            "fused_up_cell_upsample_folded": fused_up_cell.upsample_folded,
             "fused_up_cell_backward_calls": fused_up_cell.backward_calls}
 
 
@@ -1398,6 +1425,7 @@ def train_per_step(video: bool, bf16: bool = False) -> dict:
             "fused_double_conv3x3": 8 * n,
             "fused_double_conv3x3_backward_calls": 4 * n,
             "fused_up_cell": 0 if bf16 else 8 * n,
+            "fused_up_cell_upsample_folded": 0 if bf16 else 8 * n,
             "fused_up_cell_backward_calls": 0 if bf16 else 4 * n}
 
 
@@ -1834,9 +1862,10 @@ OPTION_FORWARDS = [
 BN_PER_STEP = {"fused_concat_skip": 8, "fused_concat_skip_backward": 4,
                "fused_double_conv3x3": 0,
                "fused_double_conv3x3_backward_calls": 0,
-               "fused_up_cell": 0, "fused_up_cell_backward_calls": 0}
+               "fused_up_cell": 0, "fused_up_cell_upsample_folded": 0,
+               "fused_up_cell_backward_calls": 0}
 BN_SERVE_LAUNCHES = {"fused_concat_skip": 4, "fused_double_conv3x3": 0,
-                     "fused_up_cell": 0}
+                     "fused_up_cell": 0, "fused_up_cell_upsample_folded": 0}
 
 
 def record_forward(engine) -> list:
@@ -2025,8 +2054,10 @@ def phase_options(torch, seed):
         counts = read_counts()
         add(counts)
         finite = bool(torch.isfinite(out).all())
+        # the upsample folds where it is the 2x2 ConvT
         want = {"fused_concat_skip": k1_want, "fused_double_conv3x3": k2_want,
-                "fused_up_cell": up_want}
+                "fused_up_cell": up_want, "fused_up_cell_upsample_folded":
+                    0 if name in ("up_mode", "bilinear") else up_want}
         if counts != want or not finite or tuple(out.shape) != (2, 1, 256,
                                                                 256):
             raise AssertionError(f"options {name}: launches {counts} "
@@ -2034,7 +2065,8 @@ def phase_options(torch, seed):
         rows.append({"option": name, "k1_launches": counts[
             "fused_concat_skip"], "k2_launches": counts[
             "fused_double_conv3x3"], "up_cell_launches": counts[
-            "fused_up_cell"]})
+            "fused_up_cell"], "upsample_folded": counts[
+            "fused_up_cell_upsample_folded"]})
         del model, x, out
     emit("options", part="forwards", batch=2, size=256, filters=32,
          per_forward=rows)
@@ -3777,15 +3809,18 @@ def run_phases(torch, args, kind, smi, dtypes, exr_dir, exr_proc) -> int:
     up = k2["up_cell"]
     kernels.append({
         "name": "fused_up_cell/float32", "route": "cuda",
-        "source": "uncltmo_tpu_torch/ops/kernels/csrc/double_conv3x3.cu",
-        "replaces": "uncltmo_tpu/ops/pallas_kernels.py:183 and the "
-                    "DoubleConvT's two ConvTs",
+        "source": "uncltmo_tpu_torch/ops/kernels/csrc/up_cell.cu",
+        "replaces": "uncltmo_tpu/ops/pallas_kernels.py:183, the "
+                    "DoubleConvT's two ConvTs and Up's 2x2 ConvT and pad",
+        "upsample_folded": launches["float32"][
+            "fused_up_cell_upsample_folded"],
         "launches": launches["float32"]["fused_up_cell"],
         "max_abs_err": max(x["max_abs_err"] for x in up),
         "ms": sum(x["ms"] for x in up),
         "plain_ms": sum(x["plain_ms"] for x in up),
         "bound_ms": sum(x["bound_ms"] for x in up), "bound_by": "operations",
         "library_ms": sum(x["library_ms"] for x in up),
+        "phase0_bound_ms": sum(x["phase0_bound_ms"] for x in up),
         "tflops": sum(x["flops"] for x in up) / sum(x["ms"] for x in up)
         / 1e9})
     for name, route, source, replaces, rows in (

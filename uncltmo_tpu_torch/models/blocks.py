@@ -16,7 +16,10 @@ Where the hand-written kernels run, and nowhere else:
   ConvTranspose2d(k=3) + relu of a `DoubleConvT` in one float32 launch, so
   it runs the decoder cells of every float32 generator with
   `square_and_square_root`, doubleConvTranspose, relu, no norm and skip
-  channels a multiple of 32 (the published one).
+  channels a multiple of 32 (the published one).  Where such an `Up`
+  upsamples by its 2x2 ConvT and pads in a mode the kernel writes (edge or
+  zeros), the same launch also runs the upsample, its bias and the pad or
+  crop to the skip (`Up.fold_upsample`).
 * K1 (`ops/kernels/concat_skip.py`) computes the `square_and_square_root`
   skip concat and runs it for every other generator that has that
   operator, and for a bfloat16 one (under autocast or with bfloat16
@@ -26,8 +29,8 @@ Every other cell -- padded convs, batch or instance norm, leaky ReLU, the
 other five skip operators -- is a different function from the TPU kernels
 and runs torch's own convolutions, norms and activations, as the JAX model
 runs all of its cells through XLA.  The 2x2 upsample `ConvTranspose2d(k=2,
-s=2)`, and the decoder's `ConvTranspose2d(k=3)` outside the up cell, are
-torch's layers on the reference weights (the JAX package stores the
+s=2)` outside the up cell, and the decoder's `ConvTranspose2d(k=3)`
+outside it, are torch's layers on the reference weights (the JAX package stores the
 flipped kernel of a full-pad conv; `utils/convert.py` undoes that).
 
 Norm layers take the mode from the caller: `train=True` normalises by the
@@ -49,7 +52,8 @@ from uncltmo_tpu_torch.ops.kernels.double_conv import (
     fused_double_conv3x3, pack_double_conv_weights)
 from uncltmo_tpu_torch.ops.kernels.packing import weights_key
 from uncltmo_tpu_torch.ops.kernels.up_cell import (
-    channels_ok, fused_up_cell, kernel_takes, pack_up_cell_weights)
+    FOLD_MODES, Upsample, channels_ok, fused_up_cell, kernel_takes,
+    pack_up_cell_weights, pack_upsample_weights)
 from uncltmo_tpu_torch.ops.precision import autocast_dtype, no_autocast
 from uncltmo_tpu_torch.parallel.mesh import all_reduce_sum, rank_world
 from uncltmo_tpu_torch.utils import profiling
@@ -229,6 +233,20 @@ def pad2d(x: torch.Tensor, pads: Sequence[int], padding_mode: str
 
 
 # ------------------------------------------------------------------ cells
+def _kept_packing(module: nn.Module, weights, pack, span,
+                  dtype: Optional[torch.dtype] = None):
+    """`pack(*weights)` in `dtype` (the weights' own when None), kept on
+    `module` (`_packed`) and packed again only after a reload, a cast, a
+    move or an in-place update of a weight, or for another `dtype`; a
+    packing opens the span `span()`."""
+    key = weights_key(*weights, dtype=dtype)
+    if module._packed is None or module._packed[0] != key:
+        with span():
+            ws = weights if dtype is None else [w.to(dtype) for w in weights]
+            module._packed = (key, pack(*ws))
+    return module._packed[1]
+
+
 class _PackedCell(nn.Module):
     """A cell of two 3x3 convolutions, `conv` and `conv1`, whose kernel
     reads their weights packed (`_pack`)."""
@@ -240,18 +258,10 @@ class _PackedCell(nn.Module):
                 self.conv1.bias)
 
     def packed_weights(self, dtype: Optional[torch.dtype] = None):
-        """The kernel's weight layout, in `dtype` (the weights' own when
-        None), packed once and again only after a reload, a cast, a move or
-        an in-place update of a parameter, or for another `dtype`; a packing
-        opens the cell's span (`_pack_span`)."""
-        key = weights_key(*self._weights(), dtype=dtype)
-        if self._packed is None or self._packed[0] != key:
-            with self._pack_span():
-                ws = self._weights()
-                if dtype is not None:
-                    ws = [w.to(dtype) for w in ws]
-                self._packed = (key, self._pack(*ws))
-        return self._packed[1]
+        """The kernel's weight layout (`_kept_packing`; the cell's span is
+        `_pack_span`)."""
+        return _kept_packing(self, self._weights(), self._pack,
+                             self._pack_span, dtype)
 
 
 class DoubleConv(_PackedCell):
@@ -491,8 +501,29 @@ class Up(nn.Module):
         self.fused_cell = (double_conv_transpose and self.conv.fused
                            and con_operator == params.SQUARE_AND_SQUARE_ROOT
                            and skip_ch == up_ch and channels_ok(skip_ch))
+        # and, with it, the 2x2 ConvT and the pad or crop to the skip
+        self.fold_upsample = (isinstance(self.up, nn.ConvTranspose2d)
+                              and self.padding_mode in FOLD_MODES)
+
+    _packed = None             # (weights_key, the upsample's packed weight)
+
+    def packed_upsample(self) -> torch.Tensor:
+        """The 2x2 ConvT's weight as the up cell's phase 0 reads it
+        (`_kept_packing`, under the span `uncltmo.up.pack`)."""
+        c1, c2 = self.conv.conv.weight.shape[1], self.conv.conv1.weight.shape[1]
+        return _kept_packing(
+            self, (self.up.weight,),
+            lambda w: pack_upsample_weights(w, c1, c2),
+            DoubleConvT._pack_span)
 
     def forward(self, x1, x2, d_weight_mul=None, train: bool = False):
+        if (self.fused_cell and self.fold_upsample and kernel_takes(
+                x2, x1, self.up.weight, self.up.bias, *self.conv._weights())):
+            return fused_up_cell(
+                x2, x1, *self.conv._weights(),
+                packed=self.conv.packed_weights(),
+                upsample=Upsample(self.up.weight, self.up.bias,
+                                  self.padding_mode, self.packed_upsample()))
         x1 = zero_insert_upsample(x1) if self.up_mode else self.up(x1)
         diff_y = x2.shape[2] - x1.shape[2]
         diff_x = x2.shape[3] - x1.shape[3]

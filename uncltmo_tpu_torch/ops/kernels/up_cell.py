@@ -1,5 +1,7 @@
 """The decoder's up cell, fused: K1's skip concat and the two 3x3
-ConvTranspose2d + relu of a `DoubleConvT` in one float32 kernel.
+ConvTranspose2d + relu of a `DoubleConvT` in one float32 kernel, and
+where `Up` upsamples by its 2x2 stride-2 ConvTranspose2d, that upsample
+with its bias and pad or crop too.
 
 `models/blocks.py:Up` with `square_and_square_root`, doubleConvTranspose,
 relu and no norm computes, after its 2x2 upsample and `_pad_or_crop`,
@@ -15,6 +17,13 @@ makes the concat's blocks as it stages its input (x2 and x1 are read, the
 4C-channel concat is never written) and writes the intermediate `mid`
 (B, C1, H+2, W+2, after relu); phase 2 reads it back and writes y (B, C2,
 H+4, W+4).  Products are split-TF32, as K2's float32 kernel makes them.
+With `upsample` (`Upsample`), x1 is the upsample's input x (B, C, h, w):
+the launch (`uncltmo_up_cell_folded`) runs a phase 0 first, the 2x2
+ConvT as one GEMM a position of x (N = 4C columns, one per output channel
+and parity), whose epilogue adds the bias and writes the upsampled plane
+padded or cropped to the skip's (`pad_or_crop`: edge or zero pads, as
+`models/blocks.py:_pad_or_crop`) into a buffer that phase 1 stages and
+the backward keeps; `fused_up_cell.upsample_folded` counts such launches.
 
 Float32 only (`kernel_takes`): a bfloat16 generator keeps the torch layers
 for its decoder cells, and so does every other operator, norm or
@@ -26,7 +35,9 @@ cell exactly as `Up` computes it there (K1's plain version, then
 whose forward launches the kernel (a failed build or launch raises) and
 whose backward takes the library's ConvT gradients with the relu masks of
 the saved `mid` and `y`, rebuilding the concat with K1's kernel and
-returning dx2 and dx1 through K1's backward kernel.
+returning dx2 and dx1 through K1's backward kernel; with `upsample`,
+`_UpCellFolded` adds the pad or crop's backward and the 2x2 ConvT's
+library gradients from the saved x (`up_fold_backward`).
 
 The kernel reads the weights packed (`pack_up_cell_weights`): each ConvT
 weight (Cin, Cout, 3, 3) as the valid convolution it is (flipped in both
@@ -34,7 +45,8 @@ spatial axes, in/out swapped), split into TF32 hi and lo planes, in the
 byte image of the kernel's weight stages and the order it consumes them,
 under the plan of the configuration that serves the cell
 (`up_cell_plan`).  `models/blocks.py:DoubleConvT` packs once and keeps the
-result, keyed on `packing.weights_key`.
+result, keyed on `packing.weights_key`; the 2x2 ConvT's weight packs as
+phase 0 reads it (`pack_upsample_weights`), and `Up` keeps that.
 """
 from __future__ import annotations
 
@@ -162,8 +174,8 @@ def stage_channels(ph: PhasePlan, cat: bool):
 
 
 @functools.lru_cache(maxsize=64)
-def _pack_order(ph: PhasePlan, cat: bool, device: torch.device
-                ) -> torch.Tensor:
+def _pack_order(ph: PhasePlan, cat: bool, device: torch.device,
+                taps: int = 9) -> torch.Tensor:
     """Where each element of a packed phase comes from: indices into the
     flattened [plane][tap][Cout_p][Cin_p] array, in the order in which the
     kernel's producer copies them into its weight stages: [pass of N
@@ -171,8 +183,8 @@ def _pack_order(ph: PhasePlan, cat: bool, device: torch.device
     [plane][image of the run x N, `b_image_index`].  Computed once per
     plan and device."""
     passes = ph.coutp // ph.n
-    src = torch.arange(2 * 9 * ph.coutp * ph.cinp).reshape(
-        2, 9, passes, ph.n, ph.cinp)
+    src = torch.arange(2 * taps * ph.coutp * ph.cinp).reshape(
+        2, taps, passes, ph.n, ph.cinp)
     # (plane, pass, tap, n, cin) per run
     src = src.permute(0, 2, 1, 3, 4)
     return torch.cat([
@@ -208,12 +220,114 @@ def packed_sizes(plan: UpPlan):
     return tuple(2 * 9 * p.cinp * p.coutp for p in (plan.a, plan.b))
 
 
+def fold_plan(plan: UpPlan, c: int) -> PhasePlan:
+    """Phase 0 of a cell of C skip channels under `plan`: C input channels,
+    4C columns (n = 4 co + 2 a + b) in passes of phase 1's N, tiles of its
+    64-row wgmma tiles as flat positions of x (one row of M)."""
+    m = 64 * plan.nwg * plan.a.mw
+    return PhasePlan(c, plan.a.n, 4 * c, 1, m, plan.a.mw)
+
+
+def pack_upsample_weights(w_up: torch.Tensor, c1: int, c2: int,
+                          plan: UpPlan | None = None) -> torch.Tensor:
+    """The 2x2 stride-2 ConvTranspose2d weight (C, C, 2, 2) of an up cell
+    with C1 and C2 output channels, packed for phase 0 under `plan`
+    (`up_cell_plan` of its device when None): the GEMM operand
+    B[ci][4 co + 2 a + b] = w_up[ci, co, a, b] as one tap, in TF32 hi and
+    lo planes, in the producer's stage order."""
+    c = w_up.shape[0]
+    if plan is None:
+        plan = up_cell_plan(4 * c, c1, c2, w_up.device)
+    ph = fold_plan(plan, c)
+    taps = w_up.detach().permute(1, 2, 3, 0).reshape(1, 4 * c, c)
+    return torch.stack(tf32_split(taps)).reshape(-1)[
+        _pack_order(ph, False, w_up.device, taps=1)]
+
+
+class Upsample(NamedTuple):
+    """What `fused_up_cell` folds into its launch: the 2x2 stride-2
+    ConvTranspose2d (weight (C, C, 2, 2), bias (C,)), the padding mode of
+    the pad to the skip (`FOLD_MODES`) and, optionally, the weight packed
+    (`pack_upsample_weights`)."""
+    weight: torch.Tensor
+    bias: torch.Tensor
+    padding_mode: str
+    packed: torch.Tensor | None = None
+
+
+# padding modes (as `models/blocks.py:pad_mode` names them) that phase 0's
+# epilogue writes: the edge repeated, or zeros
+FOLD_MODES = ("edge", "constant")
+
+
+def pad_or_crop(u: torch.Tensor, size, padding_mode: str) -> torch.Tensor:
+    """u (B, C, hu, wu) padded or cropped to `size` = (H, W) as
+    `models/blocks.py:_pad_or_crop` does in the `FOLD_MODES`: u's first
+    entry of an axis lands at lo = (size - n) // 2 (negative: cropped), and
+    entry Y is u's Y - lo, clamped to u (edge) or zero outside it."""
+    for axis, n_out in ((2, size[0]), (3, size[1])):
+        n = u.shape[axis]
+        if n == n_out:
+            continue
+        i = torch.arange(n_out, device=u.device) - (n_out - n) // 2
+        u = u.index_select(axis, i.clamp(0, n - 1))
+        if padding_mode != "edge" and n_out > n:
+            shape = [1, 1, 1, 1]
+            shape[axis] = n_out
+            u = torch.where(((i >= 0) & (i < n)).reshape(shape), u, 0.0)
+    return u
+
+
+def pad_or_crop_backward(g: torch.Tensor, n_up, padding_mode: str
+                         ) -> torch.Tensor:
+    """The gradient of `pad_or_crop` at u of plane n_up = (hu, wu) for the
+    output gradient g: a crop's rows and columns zero, a pad's summed into
+    the edge (edge) or dropped (zeros)."""
+    for axis, n in ((2, n_up[0]), (3, n_up[1])):
+        size = g.shape[axis]
+        if n == size:
+            continue
+        lo = (size - n) // 2
+        if size < n:                     # a crop (both sides <= 0)
+            shape = list(g.shape)
+            shape[axis] = n
+            out = g.new_zeros(shape)
+            out.narrow(axis, -lo, size).copy_(g)
+            g = out
+            continue
+        body = g.narrow(axis, lo, n).clone()
+        if padding_mode == "edge":
+            hi = size - lo - n
+            body.narrow(axis, 0, 1).add_(
+                g.narrow(axis, 0, lo).sum(axis, keepdim=True))
+            if hi:
+                body.narrow(axis, n - 1, 1).add_(
+                    g.narrow(axis, lo + n, hi).sum(axis, keepdim=True))
+        g = body
+    return g
+
+
+def upsample_plain(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+                   size, padding_mode: str) -> torch.Tensor:
+    """`Up`'s torch path to x1: the 2x2 stride-2 ConvT, then
+    `pad_or_crop` to the skip's plane `size`."""
+    return pad_or_crop(F.conv_transpose2d(x, w_up, b_up, stride=2), size,
+                       padding_mode)
+
+
 def up_cell_plain(x2, x1, w1, b1, w2, b2):
     """The plain PyTorch version: K1's plain concat, then
     `F.conv_transpose2d` + relu twice, as `Up` computes the cell on the
     CPU."""
     mid = F.relu(F.conv_transpose2d(concat_skip_plain(x2, x1), w1, b1))
     return F.relu(F.conv_transpose2d(mid, w2, b2))
+
+
+def up_fold_plain(x2, x, w_up, b_up, w1, b1, w2, b2, padding_mode: str):
+    """The plain version of the three-phase cell: `upsample_plain` to x2's
+    plane, then `up_cell_plain`."""
+    x1 = upsample_plain(x, w_up, b_up, x2.shape[2:], padding_mode)
+    return up_cell_plain(x2, x1, w1, b1, w2, b2)
 
 
 def _convt_backward(gz, x, w, need_x: bool):
@@ -247,6 +361,23 @@ def up_cell_backward(x2, x1, w1, w2, mid, y, gy, need_dx: bool = True):
     return dx2, dx1, dw1, db1, dw2, db2
 
 
+def up_fold_backward(x2, x, w_up, x1, w1, w2, mid, y, gy, padding_mode: str,
+                     need_dx2: bool = True, need_dx: bool = True):
+    """Gradients of `up_fold_plain` at (x2, x, w_up, b_up, w1, b1, w2, b2)
+    for gy, given the forward's x1, mid and y: `up_cell_backward`'s, then
+    dx1 through the pad or crop's backward (`pad_or_crop_backward`) and the
+    2x2 ConvT's library gradients from the saved x (the upsample is not
+    recomputed).  dx2 None unless `need_dx2`, dx None unless `need_dx`."""
+    dx2, dx1, dw1, db1, dw2, db2 = up_cell_backward(x2, x1, w1, w2, mid, y,
+                                                     gy)
+    du = pad_or_crop_backward(dx1, (2 * x.shape[2], 2 * x.shape[3]),
+                              padding_mode)
+    dx, dw_up, db_up = torch.ops.aten.convolution_backward(
+        du, x, w_up, [w_up.shape[1]], [2, 2], [0, 0], [1, 1], True, [0, 0],
+        1, [need_dx, True, True])
+    return (dx2 if need_dx2 else None, dx, dw_up, db_up, dw1, db1, dw2, db2)
+
+
 def launch_with(lib: ctypes.CDLL, x2, x1, packed: PackedCell, y, mid,
                 c1: int, c2: int) -> torch.Tensor:
     """One launch of `lib`'s up cell on contiguous float32 CUDA tensors
@@ -261,7 +392,10 @@ def launch_with(lib: ctypes.CDLL, x2, x1, packed: PackedCell, y, mid,
     return mid
 
 
-def _launch(x2, x1, w1, b1, w2, b2, packed):
+def _launch(x2, x1, w1, b1, w2, b2, packed, upsample=None):
+    """The kernel on CUDA tensors: (y, mid, x1), x1 phase 0's output where
+    `upsample` folds it in (x1 is then the upsample's input), else the
+    input as given."""
     lib = load_library(_SOURCE)
     x2, x1 = x2.contiguous(), x1.contiguous()
     b, cs, h, w = x2.shape
@@ -271,9 +405,27 @@ def _launch(x2, x1, w1, b1, w2, b2, packed):
     plan = library_plans(lib, 4 * cs, c1, c2)
     check_packed("fused_up_cell", packed, packed_sizes(plan), plan)
     y = torch.empty((b, c2, h + 4, w + 4), device=x2.device)
-    mid = launch_with(lib, x2, x1, packed, y, None, c1, c2)
+    if upsample is None:
+        mid = launch_with(lib, x2, x1, packed, y, None, c1, c2)
+        fused_up_cell.launches += 1
+        return y, mid, x1
+    w0p = upsample.packed
+    if w0p is None:
+        w0p = pack_upsample_weights(upsample.weight, c1, c2, plan)
+    if w0p.numel() != 2 * 4 * cs * cs:
+        raise ValueError("fused_up_cell: the upsample's `packed` was not "
+                         f"packed under the kernel's plan {plan}")
+    x = x1
+    x1 = torch.empty_like(x2)
+    mid = torch.empty((b, c1, h + 2, w + 2), device=x2.device)
+    ctr = torch.zeros(1, dtype=torch.int32, device=x2.device)
+    call(lib, "uncltmo_up_cell_folded", x, w0p,
+         upsample.bias.detach().contiguous(), x1, x2, *packed, mid, y, ctr,
+         b, cs, x.shape[2], x.shape[3], h, w, c1, c2,
+         int(upsample.padding_mode == "edge"), params.EPSILON, on=x2)
     fused_up_cell.launches += 1
-    return y, mid
+    fused_up_cell.upsample_folded += 1
+    return y, mid, x1
 
 
 class _UpCell(torch.autograd.Function):
@@ -282,7 +434,7 @@ class _UpCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, x1, w1, b1, w2, b2, packed):
-        y, mid = _launch(x2, x1, w1, b1, w2, b2, packed)
+        y, mid, x1 = _launch(x2, x1, w1, b1, w2, b2, packed)
         ctx.save_for_backward(x2, x1, w1, w2, mid, y)
         return y
 
@@ -297,29 +449,75 @@ class _UpCell(torch.autograd.Function):
         return dx2, dx1, dw1, db1, dw2, db2, None
 
 
+class _UpCellFolded(torch.autograd.Function):
+    """The three-phase cell on CUDA tensors: the forward is the kernel with
+    phase 0; the backward is `up_fold_backward` from the saved x, x1, mid
+    and y."""
+
+    @staticmethod
+    def forward(ctx, x2, x, w_up, b_up, w1, b1, w2, b2, packed, packed_up,
+                padding_mode):
+        y, mid, x1 = _launch(x2, x, w1, b1, w2, b2, packed,
+                             Upsample(w_up, b_up, padding_mode, packed_up))
+        ctx.save_for_backward(x2, x, w_up, x1, w1, w2, mid, y)
+        ctx.padding_mode = padding_mode
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x2, x, w_up, x1, w1, w2, mid, y = ctx.saved_tensors
+        grads = up_fold_backward(x2, x, w_up, x1, w1, w2, mid, y,
+                                 gy.contiguous(), ctx.padding_mode,
+                                 ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1])
+        fused_up_cell.backward_calls += 1
+        return grads + (None, None, None)
+
+
 def fused_up_cell(x2: torch.Tensor, x1: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                  packed: PackedCell | None = None) -> torch.Tensor:
+                  packed: PackedCell | None = None,
+                  upsample: Upsample | None = None) -> torch.Tensor:
     """x2, x1 (B, C, H, W) -> (B, C2, H+4, W+4); ConvTranspose2d weights
-    (4C, C1, 3, 3) and (C1, C2, 3, 3), biases (C1,), (C2,).
+    (4C, C1, 3, 3) and (C1, C2, 3, 3), biases (C1,), (C2,).  With
+    `upsample`, x1 is the 2x2 ConvT's input (B, C, h, w) and the cell reads
+    `upsample_plain` of it (phase 0 of the launch,
+    `fused_up_cell.upsample_folded`).
 
     The plain version on a CPU tensor; the CUDA kernel where it takes the
     call (`kernel_takes`, counted in `fused_up_cell.launches`),
-    differentiable through `up_cell_backward`
+    differentiable through `up_cell_backward` or `up_fold_backward`
     (`fused_up_cell.backward_calls`); any other call raises.  `packed` is
     `pack_up_cell_weights` of the same four tensors; without it the weights
-    are packed in this call."""
+    are packed in this call, and so are the upsample's without
+    `upsample.packed`."""
+    up_args = () if upsample is None else (upsample.weight, upsample.bias)
     if x2.device.type == "cpu":
-        return up_cell_plain(x2, x1, w1, b1, w2, b2)
-    if not kernel_takes(x2, x1, w1, b1, w2, b2):
+        if upsample is None:
+            return up_cell_plain(x2, x1, w1, b1, w2, b2)
+        return up_fold_plain(x2, x1, *up_args, w1, b1, w2, b2,
+                             upsample.padding_mode)
+    if not kernel_takes(x2, x1, w1, b1, w2, b2, *up_args):
         raise ValueError("fused_up_cell: float32 tensors on one CUDA card, "
-                         "outside autocast, only (x2, x1, w1, b1, w2, b2: " +
+                         "outside autocast, only (x2, x1, w1, b1, w2, b2"
+                         f"{', w_up, b_up' if up_args else ''}: " +
                          ", ".join(f"{t.dtype} on {t.device}" for t in (
-                             x2, x1, w1, b1, w2, b2)) + ")")
-    if x2.dim() != 4 or x1.shape != x2.shape:
+                             x2, x1, w1, b1, w2, b2, *up_args)) + ")")
+    if x2.dim() != 4 or x1.dim() != 4 or (upsample is None
+                                          and x1.shape != x2.shape):
         raise ValueError(f"fused_up_cell: x2 {tuple(x2.shape)} and x1 "
                          f"{tuple(x1.shape)} must be one (B, C, H, W) shape")
     b, c, h, w = x2.shape
+    if upsample is not None and (
+            x1.shape[:2] != (b, c) or min(x1.shape[2:]) < 1
+            or tuple(upsample.weight.shape) != (c, c, 2, 2)
+            or tuple(upsample.bias.shape) != (c,)
+            or upsample.padding_mode not in FOLD_MODES):
+        raise ValueError(f"fused_up_cell: the upsample of x {tuple(x1.shape)}"
+                         f" (weight {tuple(upsample.weight.shape)}, "
+                         f"{upsample.padding_mode!r} pad) does not fit the "
+                         f"skip {tuple(x2.shape)}")
     c1, c2 = w1.shape[1], w2.shape[1]
     if (tuple(w1.shape) != (4 * c, c1, 3, 3)
             or tuple(w2.shape) != (c1, c2, 3, 3)
@@ -331,8 +529,12 @@ def fused_up_cell(x2: torch.Tensor, x1: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"fused_up_cell: unsupported input shape "
                          f"{tuple(x2.shape)} (skip channels: a multiple "
                          "of 32)")
-    return _UpCell.apply(x2, x1, w1, b1, w2, b2, packed)
+    if upsample is None:
+        return _UpCell.apply(x2, x1, w1, b1, w2, b2, packed)
+    return _UpCellFolded.apply(x2, x1, *up_args, w1, b1, w2, b2, packed,
+                               upsample.packed, upsample.padding_mode)
 
 
 fused_up_cell.launches = 0
+fused_up_cell.upsample_folded = 0
 fused_up_cell.backward_calls = 0
